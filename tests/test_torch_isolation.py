@@ -1,0 +1,93 @@
+"""The port stands alone: nothing under ``agac_tpu_torch/`` and
+nothing in ``chip_smoke.py`` imports the reference package or JAX, and
+only ``graft_entry.py`` imports ``torch``.  The reference keeps
+process-global state behind hooks (the clock seam, the metrics
+registry, the journey and SLO installs, the racecheck watchdog); a port
+that mixed modules from both packages would split that state.  Every
+port module keeps its counterpart path under ``agac_tpu/`` so that the
+reference's tests run against it through an import alias."""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "agac_tpu_torch"
+PORT_ONLY = {"graft_entry.py"}
+
+
+def _port_files() -> list[pathlib.Path]:
+    return sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
+
+
+def _top_level_imports(path: pathlib.Path) -> set[str]:
+    """Every absolute import's top-level name, at any depth of the
+    module (function-level imports included)."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+def _scanned() -> list[pathlib.Path]:
+    return _port_files() + [REPO / "chip_smoke.py"]
+
+
+def test_port_has_the_slice():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()}
+    assert {"manager.py", "cloudprovider/aws/driver.py", "graft_entry.py"} <= files
+    assert (REPO / "chip_smoke.py").is_file()
+
+
+@pytest.mark.parametrize("name", ["agac_tpu", "jax", "jaxlib", "bench"])
+def test_no_import_of_the_reference_or_jax(name):
+    offenders = [
+        p.relative_to(REPO).as_posix() for p in _scanned() if name in _top_level_imports(p)
+    ]
+    assert offenders == []
+
+
+def test_torch_only_in_graft_entry():
+    importers = {
+        p.relative_to(REPO).as_posix()
+        for p in _scanned()
+        if "torch" in _top_level_imports(p)
+    }
+    assert importers <= {"agac_tpu_torch/graft_entry.py", "chip_smoke.py"}
+    assert "agac_tpu_torch/graft_entry.py" in importers
+
+
+def test_every_port_module_has_a_reference_counterpart():
+    missing = [
+        p.relative_to(PORT).as_posix()
+        for p in _port_files()
+        if p.name not in PORT_ONLY
+        and not (REPO / "agac_tpu" / p.relative_to(PORT)).is_file()
+    ]
+    assert missing == []
+
+
+def test_port_imports_without_the_reference(tmp_path):
+    """Importing the whole slice loads no module of ``agac_tpu`` and no
+    JAX (checked in a fresh interpreter, since this one has both)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import agac_tpu_torch.manager, agac_tpu_torch.cloudprovider.aws, "
+        "agac_tpu_torch.controllers\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('agac_tpu', 'jax'))\n"
+        "assert not bad, bad\n"
+        "assert 'torch' not in sys.modules\n"
+    )
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert result.returncode == 0, result.stderr
