@@ -26,6 +26,12 @@ Ported so far — the convergence path, ``Manager`` → controllers →
 - the three controllers plus the GC sweeper
   (``agac_tpu_torch.controllers``), leader election, sharding, the
   observability planes and the controller manager,
+- the simulation slice (``agac_tpu_torch.sim``): the virtual-time
+  runtime that runs the whole Manager on one thread, incident
+  capture and replay, the invariant oracles and the scenario fuzzer
+  (``python -m agac_tpu_torch.sim.fuzz``), with what it builds on:
+  the shard autoscaler (``agac_tpu_torch.autoscaler``), the Route53
+  change batcher and the dataclass wire codec (``cluster.serde``),
 - ``graft_entry``: the torch twin of the MLP in
   ``__graft_entry__.py``.
 

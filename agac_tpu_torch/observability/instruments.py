@@ -179,25 +179,13 @@ def _capture_mod():
     """Late-bound incident-capture seam: ``sim.capture``
     builds its instruments from this module, so the reverse edge — the
     driver hook recording every classified call outcome into the
-    active capture — resolves lazily.  Until the ``sim`` package is
-    part of this package no capture can be active, and the seam
-    answers ``active() -> None``."""
+    active capture — resolves lazily."""
     global _capture
     if _capture is None:
-        try:
-            from ..sim import capture as _c
-        except ModuleNotFoundError:
-            _c = _NoCapture
+        from ..sim import capture as _c
+
         _capture = _c
     return _capture
-
-
-class _NoCapture:
-    """The capture seam when no ``sim.capture`` module exists."""
-
-    @staticmethod
-    def active():
-        return None
 
 
 _capture = None

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``agac_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--services N] [--seed S]
+    python3 chip_smoke.py [--services N] [--sim-services N] [--seed S]
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -16,7 +16,23 @@ Phases, in order; any failure exits non-zero before the last line:
    complete (accelerator, listener, endpoint group), 2 x (N + N/10)
    Route53 records, every binding bound to exactly one endpoint.  The
    controller is host code, so this phase is host-bound.
-3. ``graft``: the torch twin of the MLP, forward and
+3. ``sim``: the port's virtual-time runtime, which runs the whole
+   Manager on one thread and folds every dispatch into a SHA-256
+   event-trace hash.  ``replay`` replays every checked-in incident
+   capture (``tests/captures/*.jsonl``) and requires a byte-identical
+   hash chain and a clean oracle battery; ``fuzz`` plays the
+   standard scenario's seeds 1-5 at ``quick`` and seed 1 of the
+   resize, autoscale and autoscale-brownout scenarios at ``mini``, and
+   requires clean oracles and the trace hashes pinned in
+   ``FUZZ_PINS``; ``rollout`` brings a fleet of ``--sim-services``
+   Services (default 10,000, the sim's documented scale) up over two
+   virtual hours on two replicas, runs to quiescence and requires
+   clean oracles, a complete accelerator chain per Service, the
+   TXT+A pair per hostname-annotated Service and, where
+   ``ROLLOUT_PINS`` holds one for N, the pinned trace hash.  The
+   pins are what the reference package computes for the same runs.
+   Host code: the card is idle in this phase.
+4. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points.
 
@@ -24,9 +40,9 @@ The port has no hand-written kernel (the reference holds no Pallas
 kernel), so the kernel line lists none.  The last line is
 ``{"ok": true, "device": {...}}``.
 
-The fleet helpers and ``converge`` take the package as a parameter so
-that tests can run the same fleet through the reference; this script
-itself only ever loads the port.
+The fleet helpers, ``converge`` and ``rollout`` take the package as a
+parameter so that tests can run the same fleet through the reference;
+this script itself only ever loads the port.
 """
 
 from __future__ import annotations
@@ -34,6 +50,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import pathlib
 import subprocess
 import sys
 import threading
@@ -58,6 +75,44 @@ JOIN_TIMEOUT = 15.0
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 
+# the sim phase
+CAPTURES = pathlib.Path(__file__).resolve().parent / "tests" / "captures"
+SIM_SERVICES = 10_000  # the sim's documented scale
+ROLLOUT_SECONDS = 7200.0  # the fleet arrives over two virtual hours
+QUIESCE_TIMEOUT, SETTLE_WINDOW = 12 * 3600.0, 600.0
+# (scenario, seed, profile) -> the event-trace hash the reference
+# package computes for the same scenario
+FUZZ_PINS = {
+    ("standard", 1, "quick"): (
+        "621f05c7881c25b58224790e8a1126f7826386229f8b05e4183993b5747c4285"
+    ),
+    ("standard", 2, "quick"): (
+        "6b7ef49472d9a1c99d4a9f514e620012f4526168a9df2c7a239cc54d8dd35376"
+    ),
+    ("standard", 3, "quick"): (
+        "94e2108d4ecb65d1925613ec29070c9dfbe0da52d39b658cae88976643ae2e51"
+    ),
+    ("standard", 4, "quick"): (
+        "0af12f13aa9420ff2792cfba9eb60684d39b638e8e9d8fb06df05ed0c0f3fd72"
+    ),
+    ("standard", 5, "quick"): (
+        "bdc3d6684de25e63f0f8637480cf716f25253327987bebb8ec9d7df68cdb47dd"
+    ),
+    ("resize", 1, "mini"): (
+        "1bff8b98082f252e514ebf1c1918c1209ac3ae47cec6d1c92031c7fed760e9f4"
+    ),
+    ("autoscale", 1, "mini"): (
+        "dc96a5fb4b902ad648698050a3f9a569846e8f201e149745cea2770a1bf1f27b"
+    ),
+    ("autoscale-brownout", 1, "mini"): (
+        "621f77d959c54831cabbe0a6f3706bedf8a5209e855f04a44aedd9cf4f0c9c40"
+    ),
+}
+# Services in the rollout -> the reference's event-trace hash
+ROLLOUT_PINS = {
+    10_000: "29dc7b0962778f0abe088d1b37bbe44a1a82873a15346f6924723883a9f98abd",
+}
+
 
 class PhaseError(RuntimeError):
     """A phase's check failed."""
@@ -68,7 +123,7 @@ class PhaseError(RuntimeError):
 # ---------------------------------------------------------------------------
 
 def load(package: str = PORT) -> types.SimpleNamespace:
-    """The modules the fleet needs, from ``package``."""
+    """The modules the fleet and the sim phase need, from ``package``."""
     mod = lambda name: importlib.import_module(f"{package}.{name}")
     return types.SimpleNamespace(
         apis=mod("apis"),
@@ -76,8 +131,14 @@ def load(package: str = PORT) -> types.SimpleNamespace:
         objects=mod("cluster.objects"),
         cluster=mod("cluster"),
         aws=mod("cloudprovider.aws"),
+        health=mod("cloudprovider.aws.health"),
         controllers=mod("controllers"),
+        leaderelection=mod("leaderelection"),
         manager=mod("manager"),
+        harness=mod("sim.harness"),
+        oracles=mod("sim.oracles"),
+        replay=mod("sim.replay"),
+        fuzz=mod("sim.fuzz"),
     )
 
 
@@ -326,6 +387,128 @@ def _join_new_threads(before: set) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
+# the sim: fuzz scenarios and the rollout, through a given package
+# ---------------------------------------------------------------------------
+
+def run_fuzz(pkg, scenario: str, seed: int, profile: str):
+    """One seeded scenario of ``pkg``'s fuzzer, played as its CLI plays
+    it with ``--scenario``."""
+    fuzz = pkg.fuzz
+    runners = {
+        "standard": fuzz.run_scenario,
+        "resize": fuzz.run_resize_scenario,
+        "autoscale": fuzz.run_autoscale_scenario,
+        "autoscale-brownout": fuzz.run_autoscale_brownout_scenario,
+    }
+    return runners[scenario](seed, profile=profile)
+
+
+def rollout_config(pkg, n: int):
+    """The 7-virtual-day soak's harness configuration for ``n``
+    Services: two replicas and production-shaped resync, drift, GC,
+    snapshot, health and lease periods."""
+    return pkg.harness.SimHarnessConfig(
+        replicas=2,
+        resync_period=6 * 3600.0,
+        drift_tick_period=6 * 3600.0,
+        gc_sweep_period=12 * 3600.0,
+        settle_poll_interval=30.0,
+        discovery_ttl=300.0,
+        quota_accelerators=n + 50,
+        health=pkg.health.HealthConfig(
+            window=60.0,
+            min_calls=6,
+            failure_ratio=0.5,
+            open_duration=30.0,
+            probe_budget=1,
+            aimd_qps=200.0,
+        ),
+        lease=pkg.leaderelection.LeaderElectionConfig(
+            lease_duration=120.0, renew_deadline=60.0, retry_period=30.0
+        ),
+    )
+
+
+def incomplete_chains(aws, lb_arns: list[str]) -> list[str]:
+    """The Services ``svc{i}`` whose accelerator -> listener ->
+    endpoint-group chain is missing, doubled, or not pointed at their
+    own NLB ``lb_arns[i]``."""
+    by_owner: dict = {}
+    for arn, owner in aws.accelerator_owners().items():
+        by_owner.setdefault(owner, []).append(arn)
+    bad = []
+    for i, lb_arn in enumerate(lb_arns):
+        arns = by_owner.get(f"service/default/svc{i}", [])
+        if len(arns) != 1:
+            bad.append(f"svc{i}: {len(arns)} accelerators")
+            continue
+        listeners, _ = aws.list_listeners(arns[0], 100, None)
+        if len(listeners) != 1:
+            bad.append(f"svc{i}: {len(listeners)} listeners")
+            continue
+        groups, _ = aws.list_endpoint_groups(listeners[0].listener_arn, 100, None)
+        endpoints = [d.endpoint_id for g in groups for d in g.endpoint_descriptions]
+        if len(groups) != 1 or endpoints != [lb_arn]:
+            bad.append(f"svc{i}: {len(groups)} endpoint groups, endpoints {endpoints}")
+    return bad
+
+
+def missing_records(aws, zone_id: str, n: int) -> list[str]:
+    """The hostnames of annotated Services (every 20th) that lack their
+    A record or its owner TXT twin."""
+    have = {(r.name, r.type) for r in aws.records_in_zone(zone_id)}
+    return [
+        f"app{i}.example.com"
+        for i in range(0, n, 20)
+        if not {(f"app{i}.example.com.", "A"), (f"app{i}.example.com.", "TXT")} <= have
+    ]
+
+
+def rollout(pkg, n: int) -> dict:
+    """A fleet of ``n`` Services arrives through ``pkg``'s sim harness:
+    one NLB each, one hosted zone, every 20th Service hostname-
+    annotated, the Services created evenly over ``ROLLOUT_SECONDS`` of
+    virtual time.  The world then runs to quiescence (no queued,
+    delayed or parked work and ``SETTLE_WINDOW`` virtual seconds
+    without an AWS call).  Returns the run's numbers and the findings
+    of the oracle battery and the chain and record checks (empty lists
+    when clean)."""
+    fuzz = pkg.fuzz
+    wall_start = time.monotonic()
+    with pkg.harness.SimHarness(config=rollout_config(pkg, n)) as harness:
+        lb_arns = [
+            harness.aws.add_load_balancer(f"lb{i}", REGION, fuzz._nlb_hostname(i)).load_balancer_arn
+            for i in range(n)
+        ]
+        zone = harness.aws.add_hosted_zone("example.com")
+
+        def creator():
+            for i in range(n):
+                harness.cluster.create("Service", fuzz._make_service(f"svc{i}", i, i % 20 == 0))
+                yield ROLLOUT_SECONDS / n
+
+        harness.spawn(creator(), "creator")
+        harness.run_for(ROLLOUT_SECONDS)
+        quiescent = harness.run_until_quiescent(QUIESCE_TIMEOUT, settle_window=SETTLE_WINDOW)
+        wall = time.monotonic() - wall_start
+        # read before the checks below, whose backend reads are calls
+        stats, trace_hash = harness.stats(), harness.trace_hash()
+        violations = pkg.oracles.standard_oracles(harness)
+        incomplete = incomplete_chains(harness.aws, lb_arns)
+        missing = missing_records(harness.aws, zone.id, n)
+    return {
+        "services": n,
+        "quiescent": quiescent,
+        "wall_s": wall,
+        "stats": stats,
+        "trace_hash": trace_hash,
+        "violations": violations,
+        "incomplete_chains": incomplete,
+        "missing_records": missing,
+    }
+
+
+# ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
@@ -368,6 +551,127 @@ def phase_converge(n: int, card: str) -> dict:
         flush=True,
     )
     print("converge " + json.dumps(result), flush=True)
+    return result
+
+
+def sim_replay(pkg, card: str) -> list[dict]:
+    """Every checked-in capture replays byte-identically with clean
+    oracles through ``pkg``'s replay harness."""
+    paths = sorted(CAPTURES.glob("*.jsonl"))
+    if not paths:
+        raise PhaseError(f"no incident captures under {CAPTURES}")
+    out = []
+    for path in paths:
+        start = time.monotonic()
+        result = pkg.replay.replay_capture(path)
+        wall = time.monotonic() - start
+        if not result.identical or result.violations:
+            where = result.divergence.describe() if result.divergence is not None else ""
+            raise PhaseError(
+                f"replay of {path.name}: identical={result.identical} "
+                f"violations={result.violations} {where}"
+            )
+        print(
+            f"sim replay: {path.name} ok events={result.recorded_events} "
+            f"hash={result.recorded_hash[:16]} in {wall} s wall on the host of {card}",
+            flush=True,
+        )
+        out.append(
+            {
+                "capture": path.name,
+                "events": result.recorded_events,
+                "hash": result.recorded_hash,
+                "wall_s": wall,
+            }
+        )
+    return out
+
+
+def sim_fuzz(pkg, card: str) -> list[dict]:
+    """The pinned scenarios: each clean, each with its pinned hash."""
+    out = []
+    for (scenario, seed, profile), pinned in FUZZ_PINS.items():
+        start = time.monotonic()
+        result = run_fuzz(pkg, scenario, seed, profile)
+        wall = time.monotonic() - start
+        stats = result.stats
+        print(
+            f"sim fuzz: {scenario} seed {seed} [{profile}] "
+            f"{'ok' if result.ok else 'FAIL'} trace={result.trace_hash[:16]} "
+            f"virtual={stats['virtual_time']}s calls={stats['aws_calls']} "
+            f"in {wall} s wall on the host of {card}",
+            flush=True,
+        )
+        if not result.ok:
+            raise PhaseError(f"{scenario} seed {seed} [{profile}]: {result.violations}")
+        if result.trace_hash != pinned:
+            raise PhaseError(
+                f"{scenario} seed {seed} [{profile}]: trace {result.trace_hash} != pinned {pinned}"
+            )
+        out.append(
+            {
+                "scenario": scenario,
+                "seed": seed,
+                "profile": profile,
+                "trace_hash": result.trace_hash,
+                "virtual_s": stats["virtual_time"],
+                "aws_calls": stats["aws_calls"],
+                "wall_s": wall,
+            }
+        )
+    return out
+
+
+def sim_rollout(pkg, n: int, card: str) -> dict:
+    """The rollout of ``n`` Services: quiescent, clean, every chain and
+    record pair in place, and the pinned hash where one is pinned."""
+    result = rollout(pkg, n)
+    stats = result["stats"]
+    print(
+        f"sim rollout: {n} Services in {result['wall_s']} s wall, "
+        f"virtual {stats['virtual_time']} s "
+        f"({stats['virtual_time'] / result['wall_s']} virtual s per wall s), "
+        f"{stats['aws_calls']} AWS calls, trace={result['trace_hash'][:16]} "
+        f"on the host of {card}",
+        flush=True,
+    )
+    faults = {
+        key: result[key][:10]
+        for key in ("violations", "incomplete_chains", "missing_records")
+        if result[key]
+    }
+    if not result["quiescent"] or faults:
+        raise PhaseError(f"rollout of {n}: quiescent={result['quiescent']} {faults}")
+    pinned = ROLLOUT_PINS.get(n)
+    if pinned is not None and result["trace_hash"] != pinned:
+        raise PhaseError(f"rollout of {n}: trace {result['trace_hash']} != pinned {pinned}")
+    return {
+        "services": n,
+        "wall_s": result["wall_s"],
+        "virtual_s": stats["virtual_time"],
+        "virtual_per_wall": stats["virtual_time"] / result["wall_s"],
+        "events": stats["events"],
+        "aws_calls": stats["aws_calls"],
+        "trace_hash": result["trace_hash"],
+        "pinned": pinned is not None,
+    }
+
+
+def phase_sim(n: int, card: str) -> dict:
+    pkg = load(PORT)
+    start = time.monotonic()
+    result = {
+        "replay": sim_replay(pkg, card),
+        "fuzz": sim_fuzz(pkg, card),
+        "rollout": sim_rollout(pkg, n, card),
+    }
+    result["wall_s"] = time.monotonic() - start
+    print(
+        f"sim: replay, fuzz and rollout in {result['wall_s']} s wall (host-bound, the card "
+        f"is idle in this phase) on {card}",
+        flush=True,
+    )
+    print("sim " + json.dumps(result), flush=True)
     return result
 
 
@@ -498,6 +802,9 @@ def phase_graft(torch, seed: int, card: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--services", type=int, default=200, help="Services in the fleet")
+    parser.add_argument(
+        "--sim-services", type=int, default=SIM_SERVICES, help="Services in the sim rollout"
+    )
     parser.add_argument("--seed", type=int, default=0, help="seed of the graft MLP's weights")
     args = parser.parse_args(argv)
     try:
@@ -506,6 +813,7 @@ def main(argv=None) -> int:
         load(PORT)  # fails here, before any result, outside a checkout
         card = phase_device(torch)
         phase_converge(args.services, card)
+        phase_sim(args.sim_services, card)
         phase_graft(torch, args.seed, card)
     except Exception as err:  # every phase's failure ends the run here
         print(f"chip_smoke FAILED: {type(err).__name__}: {err}", file=sys.stderr, flush=True)

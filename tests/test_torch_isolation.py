@@ -42,7 +42,24 @@ def _scanned() -> list[pathlib.Path]:
 def test_port_has_the_slice():
     files = {p.relative_to(PORT).as_posix() for p in _port_files()}
     assert {"manager.py", "cloudprovider/aws/driver.py", "graft_entry.py"} <= files
+    assert {
+        "sim/harness.py",
+        "sim/replay.py",
+        "autoscaler/policy.py",
+        "cloudprovider/aws/batcher.py",
+    } <= files
     assert (REPO / "chip_smoke.py").is_file()
+
+
+def test_capture_seam_is_the_ports_own():
+    """The driver hook records every AWS call outcome through
+    ``sim.capture``; the seam imports it plainly, with no stand-in that
+    would hide a broken import by recording nothing."""
+    from agac_tpu_torch.observability import instruments
+    from agac_tpu_torch.sim import capture
+
+    assert instruments._capture_mod() is capture
+    assert not hasattr(instruments, "_NoCapture")
 
 
 @pytest.mark.parametrize("name", ["agac_tpu", "jax", "jaxlib", "bench"])
@@ -82,7 +99,7 @@ def test_port_imports_without_the_reference(tmp_path):
     code = (
         "import sys\n"
         "import agac_tpu_torch.manager, agac_tpu_torch.cloudprovider.aws, "
-        "agac_tpu_torch.controllers\n"
+        "agac_tpu_torch.controllers, agac_tpu_torch.sim.fuzz, agac_tpu_torch.sim.replay\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('agac_tpu', 'jax'))\n"
         "assert not bad, bad\n"
         "assert 'torch' not in sys.modules\n"

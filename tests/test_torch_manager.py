@@ -117,7 +117,16 @@ def event_multiset(fleet) -> collections.Counter:
 
 
 @pytest.fixture(scope="module")
-def worlds(smoke):
+def threads_before():
+    """The threads alive before this module's Managers start: a test
+    file run earlier in the same process may leave its own behind."""
+    import threading
+
+    return set(threading.enumerate())
+
+
+@pytest.fixture(scope="module")
+def worlds(smoke, threads_before):
     return _converge(smoke, "agac_tpu"), _converge(smoke, "agac_tpu_torch")
 
 
@@ -147,13 +156,13 @@ def test_event_multisets_are_equal(worlds):
     assert port == ref
 
 
-def test_managers_leave_no_thread_running(smoke, worlds):
+def test_managers_leave_no_thread_running(worlds, threads_before):
     """``converge`` stops each Manager and joins what it started."""
     import threading
 
     leftover = [
         t.name
-        for t in threading.enumerate()
+        for t in set(threading.enumerate()) - threads_before
         if "-worker-" in t.name or t.name.endswith("-controller")
     ]
     assert leftover == []
