@@ -18,9 +18,7 @@ import logging
 import sys
 import threading
 
-# a logger of its own: the reference package logs to "agac", and a test
-# process that imports both must not share handlers or levels
-_logger = logging.getLogger("agac_tpu_torch")
+_logger = logging.getLogger("agac")
 _verbosity = 0
 _lock = threading.Lock()
 _configured = False

@@ -16,7 +16,23 @@ Phases, in order; any failure exits non-zero before the last line:
    complete (accelerator, listener, endpoint group), 2 x (N + N/10)
    Route53 records, every binding bound to exactly one endpoint.  The
    controller is host code, so this phase is host-bound.
-3. ``sim``: the port's virtual-time runtime, which runs the whole
+3. ``process``: the port's command line as the chart deploys it.  The
+   port's ``TestApiServer`` (the Kubernetes REST protocol over HTTP) is
+   seeded with 600 Services (the reference's own HTTP scale test, so
+   the informers' first LIST spans two 500-object pages; one NLB each,
+   every 20th hostname-annotated in one zone) and 60 ALB Ingresses.  Two ``python -m
+   agac_tpu_torch controller`` replicas start against it with the
+   chart's arguments, leader election at production timings and the
+   chart's no-credentials fake AWS (``AGAC_CLOUD=fake``).  Read only
+   over the wire, the phase requires one Lease holder, a
+   ``GlobalAcceleratorCreated`` Event per object and a
+   ``Route53RecordCreated`` Event per hostname, the leader's
+   ``/debug/explain`` answering ``converged`` for every object, and no
+   AWS call counted on the standby's ``/metrics``.  ``python -m
+   agac_tpu_torch webhook`` must then deny an ``EndpointGroupArn``
+   change and allow a create, and every child must stop cleanly on
+   SIGTERM.  Host code: the card is idle in this phase.
+4. ``sim``: the port's virtual-time runtime, which runs the whole
    Manager on one thread and folds every dispatch into a SHA-256
    event-trace hash.  ``replay`` replays every checked-in incident
    capture (``tests/captures/*.jsonl``) and requires a byte-identical
@@ -32,7 +48,7 @@ Phases, in order; any failure exits non-zero before the last line:
    ``ROLLOUT_PINS`` holds one for N, the pinned trace hash.  The
    pins are what the reference package computes for the same runs.
    Host code: the card is idle in this phase.
-4. ``graft``: the torch twin of the MLP, forward and
+5. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points.
 
@@ -40,9 +56,9 @@ The port has no hand-written kernel (the reference holds no Pallas
 kernel), so the kernel line lists none.  The last line is
 ``{"ok": true, "device": {...}}``.
 
-The fleet helpers, ``converge`` and ``rollout`` take the package as a
-parameter so that tests can run the same fleet through the reference;
-this script itself only ever loads the port.
+The fleet helpers, ``converge``, ``process`` and ``rollout`` take the
+package as a parameter so that tests can run the same fleet through the
+reference; this script itself only ever loads the port.
 """
 
 from __future__ import annotations
@@ -50,12 +66,18 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import os
 import pathlib
+import re
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
+import urllib.request
 
 PORT = "agac_tpu_torch"
 N_ZONES = 10
@@ -75,8 +97,26 @@ JOIN_TIMEOUT = 15.0
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 
+# the process phase
+REPO = pathlib.Path(__file__).resolve().parent
+# tests/test_envtest_e2e.py's scale test over HTTP: more than the REST
+# client's 500-object LIST page
+PROCESS_SERVICES = 600
+SERVICE_ZONE = "svc.bench.example.com"
+LEASE_NAMESPACE, LEASE_NAME = "kube-system", "aws-global-accelerator-controller"
+# the chart's controller arguments (charts/*/values.yaml and
+# templates/deployment.yaml); leader election on, at the production
+# lease timings (no AGAC_LEASE_* override)
+CHART_ARGS = (
+    "-v", "2", "controller", "--cluster-name", "default", "--workers", "8",
+    "--queue-qps", "10", "--queue-burst", "100", "--queue-max-backoff", "1000",
+    "--drift-resync-period", "0",
+)
+PROCESS_DEADLINE = 600.0
+EXIT_DEADLINE = 15.0
+
 # the sim phase
-CAPTURES = pathlib.Path(__file__).resolve().parent / "tests" / "captures"
+CAPTURES = REPO / "tests" / "captures"
 SIM_SERVICES = 10_000  # the sim's documented scale
 ROLLOUT_SECONDS = 7200.0  # the fleet arrives over two virtual hours
 QUIESCE_TIMEOUT, SETTLE_WINDOW = 12 * 3600.0, 600.0
@@ -135,6 +175,10 @@ def load(package: str = PORT) -> types.SimpleNamespace:
         controllers=mod("controllers"),
         leaderelection=mod("leaderelection"),
         manager=mod("manager"),
+        errors=mod("errors"),
+        rest=mod("cluster.rest"),
+        serde=mod("cluster.serde"),
+        testserver=mod("cluster.testserver"),
         harness=mod("sim.harness"),
         oracles=mod("sim.oracles"),
         replay=mod("sim.replay"),
@@ -387,6 +431,274 @@ def _join_new_threads(before: set) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
+# the process phase: a package's command line against an HTTP apiserver
+# ---------------------------------------------------------------------------
+
+def make_process_service(pkg, i: int):
+    """``make_service``'s NLB Service, hostname-annotated (in
+    ``SERVICE_ZONE``) only when ``i`` is a multiple of 20."""
+    svc = make_service(pkg, i)
+    annotations = svc.metadata.annotations
+    del annotations[pkg.apis.ROUTE53_HOSTNAME_ANNOTATION]
+    if i % 20 == 0:
+        annotations[pkg.apis.ROUTE53_HOSTNAME_ANNOTATION] = f"{svc.metadata.name}.{SERVICE_ZONE}"
+    return svc
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(url: str, review: dict | None = None, timeout: float = 10.0) -> bytes:
+    data = None if review is None else json.dumps(review).encode()
+    request = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=timeout) as response:
+        return response.read()
+
+
+class Child:
+    """One command-line process of the package.  Its output goes to
+    files: a pipe that nobody drains would fill and block it."""
+
+    def __init__(self, name: str, argv: list[str], env: dict, workdir: pathlib.Path):
+        self.name = name
+        self.peak_rss_mib: float | None = None  # the largest sample so far
+        self.err_path = workdir / f"{name}.stderr"
+        with open(workdir / f"{name}.stdout", "w") as out, open(self.err_path, "w") as err:
+            self.popen = subprocess.Popen(
+                argv, cwd=REPO, env=env, stdin=subprocess.DEVNULL, stdout=out, stderr=err
+            )
+
+    def stderr(self) -> str:
+        return self.err_path.read_text(errors="replace")
+
+    def check_alive(self) -> None:
+        """Fail when the process has exited; else sample its resident
+        set (``/proc/<pid>/statm``; a kernel that keeps no peak per
+        process leaves only sampling)."""
+        if self.popen.poll() is not None:
+            raise PhaseError(
+                f"{self.name} exited early with {self.popen.returncode}: {self.stderr()[-3000:]}"
+            )
+        try:
+            pages = int(pathlib.Path(f"/proc/{self.popen.pid}/statm").read_text().split()[1])
+        except (OSError, IndexError, ValueError):
+            return
+        rss = pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+        self.peak_rss_mib = max(rss, self.peak_rss_mib or 0.0)
+
+    def terminate(self) -> int:
+        """SIGTERM, then the exit status within ``EXIT_DEADLINE``."""
+        self.check_alive()
+        self.popen.send_signal(signal.SIGTERM)
+        try:
+            return self.popen.wait(timeout=EXIT_DEADLINE)
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"{self.name} still running {EXIT_DEADLINE} s after SIGTERM") from None
+
+    def kill(self) -> None:
+        if self.popen.poll() is None:
+            self.popen.kill()
+            self.popen.wait(timeout=EXIT_DEADLINE)
+
+
+def _wait_for(what: str, probe, children: list[Child], start: float):
+    """Poll ``probe`` until it returns a true value; fail at once when a
+    child exits, and at ``PROCESS_DEADLINE`` seconds after ``start``."""
+    while True:
+        for child in children:
+            child.check_alive()
+        value = probe()
+        if value:
+            return value
+        if time.monotonic() - start > PROCESS_DEADLINE:
+            raise PhaseError(f"no {what} within {PROCESS_DEADLINE} s")
+        time.sleep(0.25)
+
+
+def _aws_calls(port: int) -> float:
+    """``agac_aws_api_calls_total`` summed over its series, as the
+    replica's ``/metrics`` exposes it."""
+    text = _http(f"http://127.0.0.1:{port}/metrics").decode()
+    return sum(
+        float(line.rpartition(" ")[2])
+        for line in text.splitlines()
+        if re.match(r"agac_aws_api_calls_total[{ ]", line)
+    )
+
+
+def _review(pkg, operation: str, old, new) -> dict:
+    wire = pkg.serde.to_wire
+    request = {
+        "uid": f"{operation.lower()}-1",
+        "kind": {"group": "operator.h3poteto.dev", "version": "v1alpha1",
+                 "kind": "EndpointGroupBinding"},
+        "operation": operation,
+        "object": wire(new),
+    }
+    if old is not None:
+        request["oldObject"] = wire(old)
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview", "request": request}
+
+
+def _check_webhook(pkg, package: str, env: dict, workdir: pathlib.Path, children: list) -> dict:
+    """``python -m <package> webhook``: an ``EndpointGroupArn`` change is
+    denied and a create allowed."""
+    port = _free_port()
+    webhook = Child(
+        "webhook", [sys.executable, "-m", package, "webhook", "--ssl=false", "--port", str(port)],
+        env, workdir,
+    )
+    children.append(webhook)
+
+    def healthy() -> bool:
+        try:
+            return _http(f"http://127.0.0.1:{port}/healthz") == b"ok"
+        except OSError:
+            return False
+
+    _wait_for("webhook /healthz", healthy, [webhook], time.monotonic())
+    url = f"http://127.0.0.1:{port}/validate-endpointgroupbinding"
+    group = "arn:aws:globalaccelerator::123456789012:accelerator/a/listener/l/endpoint-group/"
+    old, new = make_binding(pkg, 0, group + "1"), make_binding(pkg, 0, group + "2")
+    update = json.loads(_http(url, _review(pkg, "UPDATE", old, new)))["response"]
+    create = json.loads(_http(url, _review(pkg, "CREATE", None, new)))["response"]
+    if update["allowed"] or update["status"]["code"] != 403 or not create["allowed"]:
+        raise PhaseError(f"webhook: ARN change answered {update}, create answered {create}")
+    return {"update": update["status"], "create": create["status"]}
+
+
+def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
+    """Seed an HTTP apiserver with ``n`` Services and ``n // 10``
+    Ingresses, run two ``python -m <package> controller`` replicas and
+    the webhook against it, require convergence read over the wire, and
+    stop every child with SIGTERM.  Returns the run's times, the Events
+    as (reason, kind, namespace/name) triples, every object's explain
+    verdict, and each child's exit status and peak RSS."""
+    n_ing = scaled_counts(n)[0]
+    services = [make_process_service(pkg, i) for i in range(n)]
+    ingresses = [make_ingress(pkg, j) for j in range(n_ing)]
+    objects = [("Service", s) for s in services] + [("Ingress", i) for i in ingresses]
+    keys = {(kind, f"{o.metadata.namespace}/{o.metadata.name}") for kind, o in objects}
+    hostname = pkg.apis.ROUTE53_HOSTNAME_ANNOTATION
+    expected = {("GlobalAcceleratorCreated", kind, key) for kind, key in keys} | {
+        ("Route53RecordCreated", kind, f"{o.metadata.namespace}/{o.metadata.name}")
+        for kind, o in objects
+        if hostname in o.metadata.annotations
+    }
+    lbs = [service_lb(i) for i in range(n)] + [alb(j) for j in range(n_ing)]
+    zones = [SERVICE_ZONE] + [f"z{k}.bench.example.com" for k in range(N_ZONES)]
+    env = dict(
+        os.environ,
+        AGAC_CLOUD="fake",
+        AGAC_FAKE_LBS=",".join(f"{name}={host}" for name, host in lbs),
+        AGAC_FAKE_ZONES=",".join(zones),
+        # the controllers' n + n_ing accelerators and bench.py's headroom of 50
+        AGAC_FAKE_QUOTA_ACCELERATORS=str(n + n_ing + 50),
+        POD_NAMESPACE=LEASE_NAMESPACE,
+    )
+    server = pkg.testserver.TestApiServer().start()
+    children: list[Child] = []
+    try:
+        for kind, obj in objects:  # in storage, before any controller starts
+            server.cluster.create(kind, obj)
+        kubeconfig = workdir / "kubeconfig"
+        kubeconfig.write_text(json.dumps({
+            "current-context": "smoke",
+            "contexts": [{"name": "smoke", "context": {"cluster": "smoke", "user": "smoke"}}],
+            "clusters": [{"name": "smoke", "cluster": {"server": server.url}}],
+            "users": [{"name": "smoke", "user": {}}],
+        }))
+        client = pkg.rest.RestClusterClient(server.url)
+        ports = [_free_port(), _free_port()]
+        start = time.monotonic()
+        for replica, port in enumerate(ports):
+            children.append(Child(
+                f"controller-{replica}",
+                [sys.executable, "-m", package, *CHART_ARGS, "--kubeconfig", str(kubeconfig),
+                 "--health-port", str(port)],
+                env, workdir,
+            ))
+
+        def holder() -> str:
+            try:
+                return client.get("Lease", LEASE_NAMESPACE, LEASE_NAME).spec.holder_identity or ""
+            except pkg.errors.NotFoundError:
+                return ""
+
+        leader_id = _wait_for("Lease holder", holder, children, start)
+        lease_s = time.monotonic() - start
+
+        def logged_by() -> list[int]:  # each replica logs its elector identity
+            line = f"leader election id: {leader_id}"
+            return [replica for replica, c in enumerate(children) if line in c.stderr()]
+
+        (leader,) = _wait_for("leader's identity in a replica's log", logged_by, children, start)
+
+        def events() -> set:
+            return {
+                (e.reason, e.involved_object.kind,
+                 f"{e.involved_object.namespace}/{e.involved_object.name}")
+                for e in client.list("Event")[0]
+            }
+
+        _wait_for("full set of Events", lambda: expected <= events(), children, start)
+        events_s = time.monotonic() - start
+
+        pending = {key for _, key in keys}
+        verdicts: dict[str, str] = {}
+
+        def converged() -> bool:
+            for key in sorted(pending):
+                answer = json.loads(_http(
+                    f"http://127.0.0.1:{ports[leader]}/debug/explain?key={key}"
+                ))
+                verdicts[key] = answer["verdict"]
+                if answer["verdict"] == "converged":
+                    pending.discard(key)
+            return not pending
+
+        _wait_for("converged verdict for every object", converged, children, start)
+        converged_s = time.monotonic() - start
+        seen = events()
+        if holder() != leader_id:
+            raise PhaseError(f"the Lease moved from {leader_id} to {holder()} during the run")
+        standby = 1 - leader
+        calls = [_aws_calls(port) for port in ports]
+        if calls[standby] != 0 or calls[leader] == 0:
+            raise PhaseError(f"AWS calls per replica {calls}: the standby (replica {standby}) called AWS")
+        webhook = _check_webhook(pkg, package, env, workdir, children)
+        exits = {child.name: child.terminate() for child in children}
+    finally:
+        for child in children:
+            child.kill()
+        server.stop()
+    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
+    # the controllers return 0 from their signal handler; the webhook,
+    # like the reference's, installs none and ends by SIGTERM itself
+    want = {c.name: 0 for c in children if c.name != "webhook"} | {"webhook": -signal.SIGTERM}
+    if exits != want or tracebacks:
+        raise PhaseError(f"exit statuses {exits} (want {want}), tracebacks from {tracebacks}")
+    return {
+        "services": n,
+        "ingresses": n_ing,
+        "lease_s": lease_s,
+        "events_s": events_s,
+        "converged_s": converged_s,
+        "objects_per_s": len(keys) / converged_s,
+        "aws_calls": calls,
+        "leader": leader,
+        "webhook": webhook,
+        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
+        "exits": exits,
+        "events": sorted(seen),
+        "verdicts": verdicts,
+    }
+
+
+# ---------------------------------------------------------------------------
 # the sim: fuzz scenarios and the rollout, through a given package
 # ---------------------------------------------------------------------------
 
@@ -551,6 +863,26 @@ def phase_converge(n: int, card: str) -> dict:
         flush=True,
     )
     print("converge " + json.dumps(result), flush=True)
+    return result
+
+
+def phase_process(n: int, card: str) -> dict:
+    pkg = load(PORT)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-process-") as workdir:
+        result = process(pkg, PORT, n, pathlib.Path(workdir))
+    print(
+        f"process: 2 controller replicas + webhook (python -m {PORT}), {n} Services + "
+        f"{result['ingresses']} Ingresses over HTTP: lease held after {result['lease_s']} s, "
+        f"every Event after {result['events_s']} s, every object converged after "
+        f"{result['converged_s']} s from spawn = {result['objects_per_s']} objects/s; "
+        f"AWS calls leader/standby {result['aws_calls'][result['leader']]}/"
+        f"{result['aws_calls'][1 - result['leader']]}; peak RSS MiB (sampled every 0.25 s) "
+        f"{result['peak_rss_mib']} "
+        f"(host-bound, the card is idle in this phase) on {card}",
+        flush=True,
+    )
+    summary = {k: v for k, v in result.items() if k not in ("events", "verdicts")}
+    print("process " + json.dumps(summary), flush=True)
     return result
 
 
@@ -813,6 +1145,7 @@ def main(argv=None) -> int:
         load(PORT)  # fails here, before any result, outside a checkout
         card = phase_device(torch)
         phase_converge(args.services, card)
+        phase_process(PROCESS_SERVICES, card)
         phase_sim(args.sim_services, card)
         phase_graft(torch, args.seed, card)
     except Exception as err:  # every phase's failure ends the run here

@@ -5,12 +5,16 @@ process-global state behind hooks (the clock seam, the metrics
 registry, the journey and SLO installs, the racecheck watchdog); a port
 that mixed modules from both packages would split that state.  Every
 port module keeps its counterpart path under ``agac_tpu/`` so that the
-reference's tests run against it through an import alias."""
+reference's tests run against it through an import alias, and that
+alias reaches the interpreters those tests spawn."""
 
 from __future__ import annotations
 
 import ast
 import pathlib
+import re
+import subprocess
+import sys
 
 import pytest
 
@@ -47,6 +51,18 @@ def test_port_has_the_slice():
         "sim/replay.py",
         "autoscaler/policy.py",
         "cloudprovider/aws/batcher.py",
+    } <= files
+    assert {
+        "__main__.py",
+        "cmd/root.py",
+        "cluster/rest.py",
+        "cluster/testserver.py",
+        "cloudprovider/aws/factory.py",
+        "cloudprovider/aws/real_backend.py",
+        "webhook/server.py",
+        "manifests/generate.py",
+        "observability/catalog.py",
+        "signals.py",
     } <= files
     assert (REPO / "chip_smoke.py").is_file()
 
@@ -93,13 +109,13 @@ def test_every_port_module_has_a_reference_counterpart():
 def test_port_imports_without_the_reference(tmp_path):
     """Importing the whole slice loads no module of ``agac_tpu`` and no
     JAX (checked in a fresh interpreter, since this one has both)."""
-    import subprocess
-    import sys
-
     code = (
         "import sys\n"
         "import agac_tpu_torch.manager, agac_tpu_torch.cloudprovider.aws, "
-        "agac_tpu_torch.controllers, agac_tpu_torch.sim.fuzz, agac_tpu_torch.sim.replay\n"
+        "agac_tpu_torch.controllers, agac_tpu_torch.sim.fuzz, agac_tpu_torch.sim.replay, "
+        "agac_tpu_torch.cmd, agac_tpu_torch.cluster.testserver, agac_tpu_torch.cluster.dynamic, "
+        "agac_tpu_torch.cloudprovider.aws.factory, agac_tpu_torch.webhook, "
+        "agac_tpu_torch.manifests, agac_tpu_torch.observability.catalog, agac_tpu_torch.signals\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('agac_tpu', 'jax'))\n"
         "assert not bad, bad\n"
         "assert 'torch' not in sys.modules\n"
@@ -108,3 +124,28 @@ def test_port_imports_without_the_reference(tmp_path):
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert result.returncode == 0, result.stderr
+
+
+def test_alias_reaches_spawned_interpreters():
+    """In the environment the reference suites run in, an interpreter
+    that a reference test spawns runs the port: ``python -m agac_tpu``
+    executes the port's ``__main__`` and loads no file of the reference,
+    and ``import agac_tpu.cmd.root`` gives the port's module."""
+    from .test_torch_reference_suite import alias_env
+
+    env = alias_env()
+    ran = subprocess.run(
+        [sys.executable, "-v", "-m", "agac_tpu", "version"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert ran.returncode == 0, ran.stderr[-4000:]
+    assert "Version : 0.1.0" in ran.stdout
+    loaded = re.findall(r"^# code object from '?([^'\n]+)", ran.stderr, re.M)
+    assert any(re.search(r"agac_tpu_torch/(__pycache__/)?__main__", path) for path in loaded)
+    assert [path for path in loaded if "/agac_tpu/" in path] == []
+    imported = subprocess.run(
+        [sys.executable, "-c", "import agac_tpu.cmd.root as r; print(r.__file__)"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert imported.returncode == 0, imported.stderr
+    assert pathlib.Path(imported.stdout.strip()) == PORT / "cmd" / "root.py"
