@@ -9,7 +9,10 @@ workqueues and a mutable fake cloud:
   from controllers, bare lock ``acquire()``, blocking sleeps inside
   reconcile paths, reconcile handlers that can fall through without a
   ``Result``, module-level imports of deps CI never installs).  Run it
-  with ``make lint-invariants``.
+  with ``python -m agac_tpu_torch.analysis.lint agac_tpu_torch``; the
+  whole-program analyses (lock order, shared-state census, determinism,
+  confinement) with ``python -m agac_tpu_torch.analysis.program
+  agac_tpu_torch --baseline agac_tpu_torch/analysis/baseline.json``.
 - ``agac_tpu_torch.analysis.racecheck`` — a runtime lock-order watchdog and
   instrumented lock/dict wrappers the core modules (workqueue,
   informer, leader election, fake backend) create their locks through.

@@ -48,9 +48,22 @@ Phases, in order; any failure exits non-zero before the last line:
    ``ROLLOUT_PINS`` holds one for N, the pinned trace hash.  The
    pins are what the reference package computes for the same runs.
    Host code: the card is idle in this phase.
-5. ``graft``: the torch twin of the MLP, forward and
+5. ``analysis``: the port's static analyses over its own tree, then
+   their runtime cross-check at fleet scale.  The port's linter must
+   find nothing and its whole-program analyses (lock order, census,
+   determinism, confinement) must pass their gate with the port's
+   baseline.  ``converge``'s fleet then converges again, through the
+   chaos tier's seeded fault plan (every AWS call may fail, mutations
+   may fail after committing) under the racecheck watchdog, and the
+   watchdog's observed lock edges and stage-tagged writes must fall
+   inside the static lock graph and footprint table.  Host code: the
+   card is idle in this phase.
+6. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
-   the CPU in float32 with bf16 rounding at the same points.
+   the CPU in float32 with bf16 rounding at the same points; then the
+   JAX program's multi-chip dry run, one train step over a 4 x 2 data x
+   model mesh of 8 gloo processes on the CPU, held to the unsharded
+   step.
 
 The port has no hand-written kernel (the reference holds no Pallas
 kernel), so the kernel line lists none.  The last line is
@@ -152,6 +165,19 @@ FUZZ_PINS = {
 ROLLOUT_PINS = {
     10_000: "29dc7b0962778f0abe088d1b37bbe44a1a82873a15346f6924723883a9f98abd",
 }
+
+# the analysis phase: the chaos tier's fault plan (tests/test_chaos_e2e.py),
+# with a budget of 5 faults per object of the fleet (1200 at 200 Services;
+# the tier's own is about 6): a budget spread over fewer objects piles
+# the faults on each key, whose backoff then outgrows the stall limit
+CHAOS = {"seed": 20260729, "p": 0.25, "ambiguous": 0.4}
+CHAOS_FAULTS_PER_OBJECT = 5
+PORT_BASELINE = REPO / PORT / "analysis" / "baseline.json"
+WORKFLOWS = REPO / ".github" / "workflows"
+
+# the graft phase's multi-chip dry run, on the CPU as the JAX program's
+# runs on virtual CPU devices
+DRYRUN_DEVICES = 8
 
 
 class PhaseError(RuntimeError):
@@ -352,13 +378,21 @@ class Fleet:
 
 
 def converge(
-    pkg, n: int, accelerator_missing_retry: float = ACCELERATOR_MISSING_RETRY
+    pkg,
+    n: int,
+    accelerator_missing_retry: float = ACCELERATOR_MISSING_RETRY,
+    chaos: dict | None = None,
 ) -> tuple[Fleet, float]:
     """Converge a fleet of ``n`` Services through ``pkg``'s Manager, then
-    stop the Manager and join every thread it started.  Returns the
-    fleet and the seconds from the objects' creation to convergence."""
+    stop the Manager and join every thread it started.  ``chaos`` holds
+    the arguments of the fake backend's seeded chaos fault plan,
+    installed once the out-of-band chains are built.  Returns the fleet
+    and the seconds from the objects' creation to convergence."""
     controllers, manager_mod = pkg.controllers, pkg.manager
     fleet = Fleet(pkg, n)
+    if chaos is not None:
+        # this thread, which reads the odometer, stays exempt
+        fleet.aws.install_fault_plan().chaos(**chaos)
     config = manager_mod.ControllerConfig(
         global_accelerator=controllers.GlobalAcceleratorConfig(
             workers=WORKERS, queue_qps=QUEUE_QPS, queue_burst=QUEUE_BURST
@@ -1007,6 +1041,146 @@ def phase_sim(n: int, card: str) -> dict:
     return result
 
 
+def analysis_static(card: str) -> dict:
+    """The port's linter and whole-program analyses over the port."""
+    lint = importlib.import_module(f"{PORT}.analysis.lint")
+    program_mod = importlib.import_module(f"{PORT}.analysis.program")
+    root = REPO / PORT
+    start = time.monotonic()
+    violations = lint.lint_paths([root], workflows_dir=WORKFLOWS)
+    lint_s = time.monotonic() - start
+    if violations:
+        raise PhaseError("lint: " + "; ".join(v.render() for v in violations[:10]))
+    start = time.monotonic()
+    rules = program_mod._load_analyses()
+    program = program_mod.Program.build([root], program_mod.shared_cache())
+    findings, blocks = program_mod.run_analyses(program, rules)
+    report = program_mod.build_report(
+        program, findings, blocks, program_mod.Baseline.load(PORT_BASELINE)
+    )
+    program_s = time.monotonic() - start
+    failures = program_mod.gate_failures(report)
+    if failures:
+        raise PhaseError("program gate: " + "; ".join(failures[:10]))
+    files = [p for p in root.rglob("*.py") if "__pycache__" not in p.parts]
+    if report["modules"] != len(files):  # a gate over fewer modules is vacuous
+        raise PhaseError(f"the analyses saw {report['modules']} of {len(files)} modules")
+    result = {
+        "modules": report["modules"],
+        "lint_violations": len(violations),
+        "lint_s": lint_s,
+        "findings": len(findings),
+        "grandfathered": len(report["baseline"]["grandfathered"]),
+        "gate_failures": len(failures),
+        "program_s": program_s,
+        "locks": len(blocks["lock-order"]["locks"]),
+        "static_edges": len(blocks["lock-order"]["edges"]),
+    }
+    print(
+        f"analysis static: lint over {report['modules']} modules, {len(violations)} "
+        f"violations in {lint_s} s; program analyses {len(findings)} findings, "
+        f"{result['grandfathered']} grandfathered, {len(failures)} gate failures in "
+        f"{program_s} s (host, the card is idle) on {card}",
+        flush=True,
+    )
+    return result
+
+
+def analysis_crosscheck(pkg, n: int, card: str) -> dict:
+    """Converge's fleet through the chaos fault plan under the racecheck
+    watchdog, then the watchdog's lock edges and stage accesses against
+    the static lock graph and footprint table of the port."""
+    racecheck = importlib.import_module(f"{PORT}.analysis.racecheck")
+    lockorder = importlib.import_module(f"{PORT}.analysis.lockorder")
+    confinement = importlib.import_module(f"{PORT}.analysis.confinement")
+    n_objects = n + sum(scaled_counts(n))
+    chaos = dict(CHAOS, fault_budget=CHAOS_FAULTS_PER_OBJECT * n_objects)
+    watchdog = racecheck.enable()  # before any lock of the fleet exists
+    try:
+        fleet, elapsed = converge(pkg, n, chaos=chaos)
+        watchdog.assert_clean()
+        edges, accesses = watchdog.edges(), watchdog.stage_accesses()
+    finally:
+        racecheck.disable()
+    faults = fleet.aws.fault_plan.faults_served
+    if faults == 0:
+        raise PhaseError("the chaos plan injected no fault")
+    lock_violations, unmapped = lockorder.runtime_crosscheck(edges)
+    footprint_violations, unmapped_accesses = confinement.runtime_footprint_crosscheck(accesses)
+    if lock_violations or footprint_violations:
+        raise PhaseError("; ".join((lock_violations + footprint_violations)[:10]))
+    result = {
+        "services": n,
+        "ingresses": fleet.n_ing,
+        "bindings": fleet.n_egb,
+        "faults_injected": faults,
+        "elapsed_s": elapsed,
+        "objects_per_s": fleet.n_objects / elapsed,
+        "observed_edges": len(edges),
+        "unmapped_edges": len(unmapped),
+        "stage_accesses": len(accesses),
+        "unmapped_accesses": len(unmapped_accesses),
+        "lock_violations": len(lock_violations),
+        "footprint_violations": len(footprint_violations),
+    }
+    print(
+        f"analysis crosscheck: {n} Services + {fleet.n_ing} Ingresses + {fleet.n_egb} "
+        f"bindings converged through {faults} injected faults in {elapsed} s = "
+        f"{result['objects_per_s']} objects/s under the racecheck watchdog; "
+        f"{len(edges)} observed lock edges ({len(unmapped)} unmapped), {len(accesses)} "
+        f"stage accesses ({len(unmapped_accesses)} unmapped), 0 violations "
+        f"(host, the card is idle) on {card}",
+        flush=True,
+    )
+    return result
+
+
+def phase_analysis(n: int, card: str) -> dict:
+    start = time.monotonic()
+    result = {
+        "static": analysis_static(card),
+        "crosscheck": analysis_crosscheck(load(PORT), n, card),
+    }
+    result["wall_s"] = time.monotonic() - start
+    print(f"analysis: static and cross-check in {result['wall_s']} s wall on {card}", flush=True)
+    print("analysis " + json.dumps(result), flush=True)
+    return result
+
+
+def graft_dryrun(torch, ge, card: str) -> dict:
+    """The data x model dry run on the CPU, held to the unsharded train
+    step on the same weights (seed 0's, all-ones data)."""
+    import contextlib
+    import io
+
+    params = ge.init_params(torch.Generator().manual_seed(0))
+    out = io.StringIO()
+    start = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        loss, new = ge.dryrun_multichip(DRYRUN_DEVICES, params)
+    wall = time.monotonic() - start
+    line = out.getvalue().strip()
+    data, model = ge.mesh_shape(DRYRUN_DEVICES)
+    if f"dryrun_multichip OK: mesh=({data} data x {model} model), loss=" not in line:
+        raise PhaseError(f"dry run printed {line!r}")
+    batch = ge.dryrun_batch(data)
+    ones = torch.ones(batch, ge.FEATURES, dtype=torch.bfloat16)
+    single = ge.GraftMLP(params)
+    ref_loss = float(ge.train_step(single, ones, ones))
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    if not loss_rel <= 1e-4:
+        raise PhaseError(f"dry-run loss {loss} vs unsharded {ref_loss} (rel {loss_rel})")
+    for name in ("w1", "w2"):
+        torch.testing.assert_close(new[name], getattr(single, name).detach())
+    print(
+        f"graft dryrun: {line}; unsharded loss {ref_loss} (rel diff {loss_rel}); "
+        f"{DRYRUN_DEVICES} gloo processes on the host CPU of {card} in {wall} s wall",
+        flush=True,
+    )
+    return {"dryrun_loss": loss, "dryrun_unsharded_loss": ref_loss,
+            "dryrun_loss_rel_diff": loss_rel, "dryrun_s": wall}
+
+
 def _reference_forward(torch, params: dict, x):
     """The MLP in float32 on the CPU, rounding to bf16 where the bf16
     program stores: the hidden pre-activation, the activation and the
@@ -1109,6 +1283,7 @@ def phase_graft(torch, seed: int, card: str) -> dict:
         cpu_fwd_ms = _host_ms(lambda: cpu_model(x))
     step_ms = _cuda_ms(torch, lambda: ge.train_step(model, xd, yd))
     cpu_step_ms = _host_ms(lambda: ge.train_step(cpu_model, x, y))
+    dryrun = graft_dryrun(torch, ge, card)
     result = {
         "forward_max_abs_err": forward_err,
         "loss": float(loss),
@@ -1119,6 +1294,7 @@ def phase_graft(torch, seed: int, card: str) -> dict:
         "cpu_forward_ms": cpu_fwd_ms,
         "cpu_train_step_ms": cpu_step_ms,
         **graft_bounds(ge),
+        **dryrun,
     }
     print(
         f"graft: forward (32, 64) bf16 {fwd_ms} ms (bound {result['forward_bound_ms']} ms), "
@@ -1147,6 +1323,7 @@ def main(argv=None) -> int:
         phase_converge(args.services, card)
         phase_process(PROCESS_SERVICES, card)
         phase_sim(args.sim_services, card)
+        phase_analysis(args.services, card)
         phase_graft(torch, args.seed, card)
     except Exception as err:  # every phase's failure ends the run here
         print(f"chip_smoke FAILED: {type(err).__name__}: {err}", file=sys.stderr, flush=True)

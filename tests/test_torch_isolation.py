@@ -64,6 +64,12 @@ def test_port_has_the_slice():
         "observability/catalog.py",
         "signals.py",
     } <= files
+    assert {
+        f"analysis/{name}.py"
+        for name in (
+            "program", "rules", "lint", "lockorder", "census", "determinism", "confinement",
+        )
+    } <= files
     assert (REPO / "chip_smoke.py").is_file()
 
 
@@ -96,6 +102,16 @@ def test_torch_only_in_graft_entry():
     assert "agac_tpu_torch/graft_entry.py" in importers
 
 
+def test_the_port_covers_every_reference_module():
+    reference = REPO / "agac_tpu"
+    missing = sorted(
+        p.relative_to(reference).as_posix()
+        for p in reference.rglob("*.py")
+        if "__pycache__" not in p.parts and not (PORT / p.relative_to(reference)).is_file()
+    )
+    assert missing == []
+
+
 def test_every_port_module_has_a_reference_counterpart():
     missing = [
         p.relative_to(PORT).as_posix()
@@ -115,7 +131,11 @@ def test_port_imports_without_the_reference(tmp_path):
         "agac_tpu_torch.controllers, agac_tpu_torch.sim.fuzz, agac_tpu_torch.sim.replay, "
         "agac_tpu_torch.cmd, agac_tpu_torch.cluster.testserver, agac_tpu_torch.cluster.dynamic, "
         "agac_tpu_torch.cloudprovider.aws.factory, agac_tpu_torch.webhook, "
-        "agac_tpu_torch.manifests, agac_tpu_torch.observability.catalog, agac_tpu_torch.signals\n"
+        "agac_tpu_torch.manifests, agac_tpu_torch.observability.catalog, agac_tpu_torch.signals, "
+        "agac_tpu_torch.analysis.lint, agac_tpu_torch.analysis.program, "
+        "agac_tpu_torch.analysis.lockorder, agac_tpu_torch.analysis.census, "
+        "agac_tpu_torch.analysis.determinism, agac_tpu_torch.analysis.confinement\n"
+        "assert len(agac_tpu_torch.analysis.program._load_analyses()) == 4\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('agac_tpu', 'jax'))\n"
         "assert not bad, bad\n"
         "assert 'torch' not in sys.modules\n"
@@ -149,3 +169,20 @@ def test_alias_reaches_spawned_interpreters():
     )
     assert imported.returncode == 0, imported.stderr
     assert pathlib.Path(imported.stdout.strip()) == PORT / "cmd" / "root.py"
+
+
+def test_alias_reaches_the_bench_script():
+    """``tests/test_bench_output.py`` runs ``python bench.py`` with the
+    suite's environment: in it the script's imports load the port's
+    files and none of the reference's."""
+    from .test_torch_reference_suite import alias_env
+
+    ran = subprocess.run(
+        [sys.executable, "-v", "-c", "import bench, agac_tpu.analysis.lockorder"],
+        cwd=REPO, env=alias_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert ran.returncode == 0, ran.stderr[-4000:]
+    loaded = re.findall(r"^# code object from '?([^'\n]+)", ran.stderr, re.M)
+    assert any("agac_tpu_torch/manager" in path for path in loaded)
+    assert any("agac_tpu_torch/analysis/lockorder" in path for path in loaded)
+    assert [path for path in loaded if "/agac_tpu/" in path] == []

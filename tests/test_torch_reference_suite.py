@@ -64,9 +64,15 @@ REFERENCE_FILES = [
 # single tests left out of a listed file (here or in a later slice's
 # suite), each with its reason
 DESELECT = {
-    "test_drift_resync.py": [
-        # imports tests/test_chaos_e2e.py, which needs analysis.confinement
-        "TestTamperStorm::test_fleet_reconverges_after_out_of_band_tampering",
+    "test_confinement_analysis.py": [
+        # each pins "agac_tpu.cloudprovider.aws.fake_backend::FakeAWSBackend"
+        # against a program built over the package the alias serves, whose
+        # modules are named after the port's directory; each runs with the
+        # name mapped in tests/test_torch_analysis.py
+        "TestFootprintTableGolden::test_api_family_covers_backend_implementations",
+        "TestRuntimeCrosscheck::test_covered_write_passes",
+        "TestRuntimeCrosscheck::test_any_active_stage_covering_suffices",
+        "TestRuntimeCrosscheck::test_api_stage_names_normalize_to_family",
     ],
     "test_process_e2e.py": [
         # two wall-clock drills that fail now and then on the reference
