@@ -492,6 +492,8 @@ class ShardMembership:
         self._load_cache: tuple[int, dict[int, int]] = (-LOAD_REFRESH_TICKS, {})
         self._observed_loads: dict[str, int] = {}  # holder identity -> keys
         self._unheld_streak: dict[int, int] = {}
+        # shard -> (holder, renew time) its lease showed at the last peek
+        self._peeked_records: dict[int, tuple] = {}
         self._recently_shed: dict[int, int] = {}
         self._last_shed_tick = -(10 ** 9)
         self._tick_serial = 0
@@ -720,9 +722,9 @@ class ShardMembership:
         for shard in self._active_shards():
             if shard in owned:
                 continue
-            holder = self._peek_holder(client, shard)
+            holder, renewed = self._peek_holder(client, shard)
             self._observe(shard, holder)
-            if holder:
+            if holder and renewed:
                 self._unheld_streak.pop(shard, None)
             else:
                 self._unheld_streak[shard] = self._unheld_streak.get(shard, 0) + 1
@@ -941,15 +943,24 @@ class ShardMembership:
         except Exception:
             return  # CAS conflict or hiccup: next publish retries
 
-    def _peek_holder(self, client, shard: int) -> Optional[str]:
+    def _peek_holder(self, client, shard: int) -> tuple[Optional[str], bool]:
+        """(holder, renewed): the lease's holder, and whether its record
+        changed since the last peek.  A holder that stops renewing (a
+        killed replica) leaves its lease held, expired, and its last
+        keys-owned behind; counted as unheld, it reaches the
+        availability grace, so an overloaded survivor still claims the
+        lease once it expires."""
         try:
             lease = client.get(
                 "Lease", self.config.namespace,
                 f"{self.config.lease_prefix}-{shard}",
             )
         except Exception:
-            return None
+            return None, False
         holder = lease.spec.holder_identity or None
+        record = (holder, lease.spec.renew_time)
+        renewed = self._peeked_records.get(shard) != record
+        self._peeked_records[shard] = record
         if holder:
             raw = (lease.metadata.annotations or {}).get(ANN_KEYS_OWNED)
             if raw is not None:
@@ -957,7 +968,7 @@ class ShardMembership:
                     self._observed_loads[holder] = int(raw)
                 except ValueError:
                     pass
-        return holder
+        return holder, renewed
 
     def _publish(self, owned: set[int]) -> None:
         self._owned = frozenset(owned)

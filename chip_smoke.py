@@ -32,7 +32,22 @@ Phases, in order; any failure exits non-zero before the last line:
    agac_tpu_torch webhook`` must then deny an ``EndpointGroupArn``
    change and allow a create, and every child must stop cleanly on
    SIGTERM.  Host code: the card is idle in this phase.
-4. ``sim``: the port's virtual-time runtime, which runs the whole
+4. ``shard``: the sharded deployment, ``bench.py``'s scaling curve over
+   the port's command line.  At widths 1, 2 and 4, that many ``python
+   -m agac_tpu_torch controller --shard-count W`` replicas share one
+   HTTP apiserver and one flock-arbitrated fake AWS account
+   (``AGAC_FAKE_STATE``, 0.3 s per call) and converge 200 Services on
+   one NLB, created once every shard lease is held; a fourth run at
+   width 2 kills the holder of shard 0 with SIGKILL halfway, and the
+   survivor must steal its lease and finish.  Read over the wire, each
+   run must show disjoint lease ownership, exactly 200 complete
+   chains, an aggregate call rate and summed AIMD ceilings within the
+   400/s per-service budget, a journey closed per Service in the
+   fleet-merged metrics and, after the kill, the survivor owning every
+   shard.  Objects/s, speedup and efficiency per width print beside
+   ``bench.py``'s gates, which measure the host and are not enforced.
+   Host code: the card is idle in this phase.
+5. ``sim``: the port's virtual-time runtime, which runs the whole
    Manager on one thread and folds every dispatch into a SHA-256
    event-trace hash.  ``replay`` replays every checked-in incident
    capture (``tests/captures/*.jsonl``) and requires a byte-identical
@@ -45,10 +60,14 @@ Phases, in order; any failure exits non-zero before the last line:
    virtual hours on two replicas, runs to quiescence and requires
    clean oracles, a complete accelerator chain per Service, the
    TXT+A pair per hostname-annotated Service and, where
-   ``ROLLOUT_PINS`` holds one for N, the pinned trace hash.  The
-   pins are what the reference package computes for the same runs.
-   Host code: the card is idle in this phase.
-5. ``analysis``: the port's static analyses over its own tree, then
+   ``ROLLOUT_PINS`` holds one for N, the pinned trace hash;
+   ``shard-soak`` brings the same number of Services up on two shards,
+   kills a replica at virtual hour 3 and requires clean oracles and
+   SLOs, every journey closed, one accelerator per Service, one owner
+   of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
+   hash.  The pins are what the reference package computes for the
+   same runs.  Host code: the card is idle in this phase.
+6. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
    determinism, confinement) must pass their gate with the port's
@@ -58,7 +77,7 @@ Phases, in order; any failure exits non-zero before the last line:
    watchdog's observed lock edges and stage-tagged writes must fall
    inside the static lock graph and footprint table.  Host code: the
    card is idle in this phase.
-6. ``graft``: the torch twin of the MLP, forward and
+7. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points; then the
    JAX program's multi-chip dry run, one train step over a 4 x 2 data x
@@ -69,19 +88,20 @@ The port has no hand-written kernel (the reference holds no Pallas
 kernel), so the kernel line lists none.  The last line is
 ``{"ok": true, "device": {...}}``.
 
-The fleet helpers, ``converge``, ``process`` and ``rollout`` take the
-package as a parameter so that tests can run the same fleet through the
-reference; this script itself only ever loads the port.
+The fleet helpers, ``converge``, ``process``, ``shard_fleet``,
+``rollout`` and ``shard_soak`` take the package as a parameter so that
+tests can run the same fleet through the reference; this script itself
+only ever loads the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import importlib
 import json
 import os
 import pathlib
-import re
 import signal
 import socket
 import subprocess
@@ -90,6 +110,7 @@ import tempfile
 import threading
 import time
 import types
+import urllib.error
 import urllib.request
 
 PORT = "agac_tpu_torch"
@@ -128,6 +149,37 @@ CHART_ARGS = (
 PROCESS_DEADLINE = 600.0
 EXIT_DEADLINE = 15.0
 
+# the shard phase: bench.py's scaling-curve sweep (bench.py:1255-1290),
+# its fleet (SHARD_N Services on one NLB), workers, call latency and
+# global per-service AWS budget.  Width 8 is cut: eight processes x 8
+# workers beside the apiserver on the card host's 8 cores measure the
+# host (bench.py:1260-1264)
+SHARD_SERVICES = 200
+SHARD_WIDTHS = (1, 2, 4)
+SHARD_WORKERS = 8
+SHARD_LATENCY = 0.3
+SHARD_BUDGET_QPS = 400.0
+SHARD_LB = ("shardlb", f"shardlb-0123456789abcdef.elb.{REGION}.amazonaws.com")
+# the failover run kills the holder of shard 0 once this share of the
+# fleet's chains is complete
+SHARD_KILL_AT = 0.5
+# the bench's gates, printed beside the curve but not enforced: they
+# measure the host's cores
+SHARD_MIN_SPEEDUP_2, SHARD_MIN_EFFICIENCY_4 = 1.7, 0.75
+# the bench's lease timing and retry and poll overrides
+# (bench.py:1389-1411): a sub-2 s renew deadline reads a GIL pause on
+# shared cores as a crash, and the chart's 60 s lease would stretch the
+# failover run by a minute
+SHARD_ENV = {
+    "AGAC_LEASE_DURATION": "15",
+    "AGAC_LEASE_RENEW_DEADLINE": "8",
+    "AGAC_LEASE_RETRY_PERIOD": "0.5",
+    "AGAC_ACCELERATOR_MISSING_RETRY": "0.1",
+    "AGAC_LB_NOT_ACTIVE_RETRY": "0.1",
+    "AGAC_POLL_INTERVAL": "0.02",
+    "AGAC_POLL_TIMEOUT": "5",
+}
+
 # the sim phase
 CAPTURES = REPO / "tests" / "captures"
 SIM_SERVICES = 10_000  # the sim's documented scale
@@ -164,6 +216,15 @@ FUZZ_PINS = {
 # Services in the rollout -> the reference's event-trace hash
 ROLLOUT_PINS = {
     10_000: "29dc7b0962778f0abe088d1b37bbe44a1a82873a15346f6924723883a9f98abd",
+}
+# the two-shard soak (tests/test_sharding_sim.py, TestTwoShardSoak): a
+# replica is killed at virtual hour 3, the world runs 6 virtual hours,
+# then to quiescence within 6 more
+SHARD_SOAK_KILL_AT = 3 * 3600.0
+SHARD_SOAK_SECONDS = 6 * 3600.0
+# Services in the soak -> the reference's event-trace hash
+SHARD_SOAK_PINS = {
+    10_000: "6b163afcab7a96bd0b0256e7bb3f4d477b31938984c95a5aa1d5311e1df67990",
 }
 
 # the analysis phase: the chaos tier's fault plan (tests/test_chaos_e2e.py),
@@ -205,6 +266,8 @@ def load(package: str = PORT) -> types.SimpleNamespace:
         rest=mod("cluster.rest"),
         serde=mod("cluster.serde"),
         testserver=mod("cluster.testserver"),
+        fake_backend=mod("cloudprovider.aws.fake_backend"),
+        fleet=mod("observability.fleet"),
         harness=mod("sim.harness"),
         oracles=mod("sim.oracles"),
         replay=mod("sim.replay"),
@@ -492,6 +555,48 @@ def _http(url: str, review: dict | None = None, timeout: float = 10.0) -> bytes:
         return response.read()
 
 
+def _get_json(url: str):
+    """A JSON endpoint's body, also when it answers 503 (``/readyz``
+    does while a circuit is open)."""
+    try:
+        return json.loads(_http(url))
+    except urllib.error.HTTPError as err:
+        return json.loads(err.read())
+
+
+def scrape_replica(port: int) -> dict:
+    """One replica as an operator scrapes it, ``bench.py``'s reads:
+    AWS calls per service family and per operation off ``/metrics``,
+    AIMD ceilings per family off ``/readyz`` and the shard block of
+    ``/healthz``."""
+    metrics = _http(f"http://127.0.0.1:{port}/metrics").decode()
+    calls: dict[str, float] = {}
+    ops: dict[str, float] = {}
+    for line in metrics.splitlines():
+        if line.startswith("agac_aws_api_calls_total{"):
+            labels, _, value = line.rpartition(" ")
+            # elbv2[region] folds into elbv2: the budget is per family
+            family = labels.split('service="')[1].split('"')[0].split("[", 1)[0]
+            calls[family] = calls.get(family, 0.0) + float(value)
+            op = labels.split('op="')[1].split('"')[0]
+            ops[op] = ops.get(op, 0.0) + float(value)
+    ceilings: dict[str, float] = {}
+    for service, snap in _get_json(f"http://127.0.0.1:{port}/readyz").get("services", {}).items():
+        if "aimd_ceiling" in snap:
+            family = service.split("[", 1)[0]
+            ceilings[family] = ceilings.get(family, 0.0) + snap["aimd_ceiling"]
+    sharding = _get_json(f"http://127.0.0.1:{port}/healthz")["sharding"]
+    return {
+        "calls": calls, "ops": ops, "ceilings": ceilings, "sharding": sharding, "metrics": metrics
+    }
+
+
+def cpu_seconds(pid: int) -> float:
+    """User and system CPU seconds process ``pid`` has used so far."""
+    fields = pathlib.Path(f"/proc/{pid}/stat").read_text().rpartition(")")[2].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
 class Child:
     """One command-line process of the package.  Its output goes to
     files: a pipe that nobody drains would fill and block it."""
@@ -552,15 +657,16 @@ def _wait_for(what: str, probe, children: list[Child], start: float):
         time.sleep(0.25)
 
 
-def _aws_calls(port: int) -> float:
-    """``agac_aws_api_calls_total`` summed over its series, as the
-    replica's ``/metrics`` exposes it."""
-    text = _http(f"http://127.0.0.1:{port}/metrics").decode()
-    return sum(
-        float(line.rpartition(" ")[2])
-        for line in text.splitlines()
-        if re.match(r"agac_aws_api_calls_total[{ ]", line)
-    )
+def write_kubeconfig(workdir: pathlib.Path, server_url: str) -> pathlib.Path:
+    """A kubeconfig in ``workdir`` whose one context is ``server_url``."""
+    path = workdir / "kubeconfig"
+    path.write_text(json.dumps({
+        "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "smoke", "user": "smoke"}}],
+        "clusters": [{"name": "smoke", "cluster": {"server": server_url}}],
+        "users": [{"name": "smoke", "user": {}}],
+    }))
+    return path
 
 
 def _review(pkg, operation: str, old, new) -> dict:
@@ -638,13 +744,7 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
     try:
         for kind, obj in objects:  # in storage, before any controller starts
             server.cluster.create(kind, obj)
-        kubeconfig = workdir / "kubeconfig"
-        kubeconfig.write_text(json.dumps({
-            "current-context": "smoke",
-            "contexts": [{"name": "smoke", "context": {"cluster": "smoke", "user": "smoke"}}],
-            "clusters": [{"name": "smoke", "cluster": {"server": server.url}}],
-            "users": [{"name": "smoke", "user": {}}],
-        }))
+        kubeconfig = write_kubeconfig(workdir, server.url)
         client = pkg.rest.RestClusterClient(server.url)
         ports = [_free_port(), _free_port()]
         start = time.monotonic()
@@ -700,7 +800,7 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
         if holder() != leader_id:
             raise PhaseError(f"the Lease moved from {leader_id} to {holder()} during the run")
         standby = 1 - leader
-        calls = [_aws_calls(port) for port in ports]
+        calls = [sum(scrape_replica(port)["calls"].values()) for port in ports]
         if calls[standby] != 0 or calls[leader] == 0:
             raise PhaseError(f"AWS calls per replica {calls}: the standby (replica {standby}) called AWS")
         webhook = _check_webhook(pkg, package, env, workdir, children)
@@ -729,6 +829,278 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
         "exits": exits,
         "events": sorted(seen),
         "verdicts": verdicts,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the shard phase: a package's sharded fleet over one durable fake account
+# ---------------------------------------------------------------------------
+
+def make_shard_service(pkg, i: int):
+    """``bench.py``'s sharded-fleet Service: a managed NLB Service in
+    ``default``, every one behind the one load balancer ``SHARD_LB``."""
+    o, apis = pkg.objects, pkg.apis
+    svc = o.Service(
+        metadata=o.ObjectMeta(
+            name=f"shard{i:04d}",
+            namespace="default",
+            annotations={
+                apis.AWS_GLOBAL_ACCELERATOR_MANAGED_ANNOTATION: "true",
+                apis.AWS_LOAD_BALANCER_TYPE_ANNOTATION: "external",
+            },
+        ),
+        spec=o.ServiceSpec(
+            type="LoadBalancer", ports=[o.ServicePort(name="http", port=80, protocol="TCP")]
+        ),
+    )
+    svc.status.load_balancer.ingress.append(o.LoadBalancerIngress(hostname=SHARD_LB[1]))
+    return svc
+
+
+def journey_counts(pkg, texts: list[str]) -> dict:
+    """Journeys closed, by trigger, and still in flight over the
+    fleet-merged exposition of ``texts``, with the GA controllers'
+    converge percentiles."""
+    families, _ = pkg.fleet.merge_expositions({f"replica-{i}": t for i, t in enumerate(texts)})
+    empty = pkg.fleet.Family("")
+    closed = {"spec": 0, "handoff": 0}
+    for sample, value in families.get("agac_journey_converge_seconds", empty).samples.items():
+        for trigger in closed:
+            if "_count{" in sample and f'trigger="{trigger}"' in sample:
+                closed[trigger] += int(value)
+    inflight = sum(families.get("agac_journey_inflight", empty).samples.values())
+    ga = pkg.fleet.converge_percentiles(families)["ga"]
+    return {**closed, "inflight": int(inflight), "ga": ga}
+
+
+def flock_op_seconds(pkg, state_path: str, ops: int = 21) -> float:
+    """One mutating call's time under the fake account's flock at the
+    state file's current size, the median of ``ops``: two backends on
+    the file take turns adding a hosted zone, so each reloads the
+    other's write, applies and saves, as a replica's mutation does
+    after another's."""
+    writers = [pkg.fake_backend.FileBackedFakeAWSBackend(state_path) for _ in range(2)]
+    times = []
+    for i in range(ops):
+        start = time.perf_counter()
+        writers[i % 2].add_hosted_zone(f"flock-probe-{i}.example.com")
+        times.append(time.perf_counter() - start)
+    return sorted(times)[ops // 2]
+
+
+def shard_fleet(
+    pkg,
+    package: str,
+    n: int,
+    width: int,
+    latency: float,
+    workdir: pathlib.Path,
+    kill_at: float | None = None,
+) -> dict:
+    """``bench.py``'s sharded deployment at one width: ``width``
+    ``python -m <package> controller`` replicas, one shard lease each
+    (``--shard-count width``; at width 1 one replica without leader
+    election), share one flock-arbitrated fake account
+    (``AGAC_FAKE_STATE``) and one HTTP apiserver.  Once every shard
+    lease is held, ``n`` Services on one NLB are created in parallel,
+    and the fleet must converge to exactly ``n`` complete chains.
+
+    With ``kill_at``, the replica holding shard 0 gets SIGKILL once that
+    share of the chains is complete; each replica may then hold every
+    shard (``--shards-per-replica width``), so the survivor can steal
+    the dead replica's lease and finish the fleet.
+
+    Beside the bounds it reports where a flattening curve loses its
+    time: the host's cores in use over the run (the replicas' and this
+    process's CPU seconds over the run's seconds), this process's alone
+    (it serves the apiserver, one interpreter), and the share of the
+    run the account's flock was held (mutating calls times
+    ``flock_op_seconds`` at the final state size, an upper bound: the
+    state grows over the run).
+
+    Hard bounds (``PhaseError``): every shard lease held by one replica;
+    ``chain_counts() == (n, n, n)``, never more; the fleet's aggregate
+    call rate per service family and its summed AIMD ceilings within
+    ``SHARD_BUDGET_QPS``; ``n`` spec journeys over the fleet-merged
+    metrics (after a kill: the survivor closes a journey for every
+    Service, and none is counted twice as spec); after a kill, the
+    survivor owns every shard; every live replica exits 0 on SIGTERM.
+    Returns the run's times, telemetry and the final AWS state."""
+    env = dict(
+        os.environ,
+        AGAC_CLOUD="fake",
+        AGAC_FAKE_STATE=str(workdir / "aws-state.json"),
+        AGAC_FAKE_LBS="=".join(SHARD_LB),
+        AGAC_FAKE_LATENCY=str(latency),
+        AGAC_FAKE_QUOTA_ACCELERATORS=str(n + 20),
+        AGAC_API_HEALTH_AIMD_QPS=str(SHARD_BUDGET_QPS),
+        POD_NAMESPACE=LEASE_NAMESPACE,
+        **SHARD_ENV,
+    )
+    if width == 1:
+        placement = ["--disable-leader-election"]
+    else:
+        placement = ["--shards-per-replica", str(width if kill_at is not None else 1)]
+    shards = set(range(width))
+    server = pkg.testserver.TestApiServer().start()
+    children: list[Child] = []
+    try:
+        kubeconfig = write_kubeconfig(workdir, server.url)
+        ports = [_free_port() for _ in range(width)]
+        spawned = time.monotonic()
+        for replica, port in enumerate(ports):
+            children.append(Child(
+                f"controller-{replica}",
+                [sys.executable, "-m", package, "controller", "--kubeconfig", str(kubeconfig),
+                 "-c", "bench-shard", "-w", str(SHARD_WORKERS),
+                 "--queue-qps", "1000", "--queue-burst", "1000",
+                 "--health-port", str(port), "--shard-count", str(width), *placement],
+                env, workdir,
+            ))
+
+        def owned_sets() -> list[set] | None:
+            try:
+                views = [_get_json(f"http://127.0.0.1:{p}/healthz")["sharding"] for p in ports]
+            except OSError:
+                return None
+            if width == 1:
+                return [shards]
+            owned = [set(v.get("owned", ())) for v in views]
+            return owned if set().union(*owned) == shards else None
+
+        owned = _wait_for("every shard lease held", owned_sets, children, spawned)
+        lease_s = time.monotonic() - spawned
+        if sum(map(len, owned)) != width:
+            raise PhaseError(f"{width} shards: replicas hold overlapping sets {owned}")
+
+        client = pkg.rest.RestClusterClient(server.url)
+        pids = {r: child.popen.pid for r, child in enumerate(children)}
+        cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
+        own = os.times()
+        start = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(lambda i: client.create("Service", make_shard_service(pkg, i)), range(n)))
+        created_s = time.monotonic() - start
+        aws = pkg.fake_backend.FileBackedFakeAWSBackend(env["AGAC_FAKE_STATE"])
+        live = list(range(width))
+        kill = None
+        victim_metrics: list[str] = []
+        victim_calls: dict[str, float] = {}
+        victim_ops: dict[str, float] = {}
+        while True:
+            chains = aws.chain_counts()
+            if max(chains) > n:
+                raise PhaseError(f"{width} shards: chain counts {chains} exceed {n}: duplicates")
+            if chains == (n, n, n) and (kill is None or "takeover_s" in kill):
+                break
+            now = time.monotonic()
+            if now - start > PROCESS_DEADLINE:
+                raise PhaseError(
+                    f"{width} shards: chain counts {chains} of {n} after {now - start} s"
+                )
+            for replica in live:
+                children[replica].check_alive()
+            if kill_at is not None and kill is None and chains[2] >= kill_at * n:
+                views = {r: scrape_replica(ports[r]) for r in live}
+                (victim,) = [r for r, v in views.items() if 0 in v["sharding"]["owned"]]
+                victim_metrics = [views[victim]["metrics"]]
+                victim_calls, victim_ops = views[victim]["calls"], views[victim]["ops"]
+                cpu[victim] += cpu_seconds(pids[victim])
+                children[victim].popen.send_signal(signal.SIGKILL)
+                children[victim].popen.wait(timeout=EXIT_DEADLINE)
+                live.remove(victim)
+                kill = {"victim": victim, "owned": sorted(views[victim]["sharding"]["owned"]),
+                        "chains": list(chains), "at_s": time.monotonic() - start}
+            elif kill is not None and "takeover_s" not in kill:
+                (survivor,) = live
+                view = _get_json(f"http://127.0.0.1:{ports[survivor]}/healthz")["sharding"]
+                if set(view.get("owned", ())) == shards:
+                    kill["takeover_s"] = time.monotonic() - start - kill["at_s"]
+            time.sleep(0.1)
+        elapsed = time.monotonic() - start
+        for r in live:
+            cpu[r] += cpu_seconds(pids[r])
+        own_cpu = sum(os.times()[:2]) - sum(own[:2])
+
+        def settled() -> list[dict] | None:
+            # the live replicas close a journey per Service, none in flight
+            scrapes = [scrape_replica(ports[r]) for r in live]
+            journeys = journey_counts(pkg, [s["metrics"] for s in scrapes])
+            if journeys["inflight"] or journeys["spec"] + journeys["handoff"] < n:
+                return None
+            return scrapes
+
+        scrapes = _wait_for("every journey closed", settled, [children[r] for r in live], start)
+        if aws.chain_counts() != (n, n, n):
+            raise PhaseError(f"{width} shards: chain counts {aws.chain_counts()} after settling")
+        # the victim's journeys as last scraped before the kill; its
+        # journeys in flight then died with it, and the survivor's
+        # takeover resync closes them as handoff journeys
+        journeys = journey_counts(pkg, [s["metrics"] for s in scrapes] + victim_metrics)
+        journeys["inflight"] = 0  # on the live replicas, as settled() waited for
+        spec_ok = journeys["spec"] == n if kill is None else journeys["spec"] <= n
+        if not spec_ok:
+            raise PhaseError(f"{width} shards: {journeys['spec']} spec journeys for {n} Services")
+        if kill is not None:
+            kill["converged_after_s"] = elapsed - kill["at_s"]
+            kill["survivor_owned"] = sorted(scrapes[0]["sharding"]["owned"])
+            if set(kill["survivor_owned"]) != shards:
+                raise PhaseError(f"after the kill the survivor owns {kill['survivor_owned']}")
+        calls: dict[str, float] = dict(victim_calls)
+        ops: dict[str, float] = dict(victim_ops)
+        ceilings: dict[str, float] = {}
+        for scrape in scrapes:
+            for family, count in scrape["calls"].items():
+                calls[family] = calls.get(family, 0.0) + count
+            for op, count in scrape["ops"].items():
+                ops[op] = ops.get(op, 0.0) + count
+            for family, ceiling in scrape["ceilings"].items():
+                ceilings[family] = ceilings.get(family, 0.0) + ceiling
+        rates = {family: count / elapsed for family, count in sorted(calls.items())}
+        over = {
+            family: value
+            for family, value in [*rates.items(), *ceilings.items()]
+            if value > SHARD_BUDGET_QPS * 1.001
+        }
+        if over:
+            raise PhaseError(
+                f"{width} shards: call rates {rates} or summed AIMD ceilings {ceilings} "
+                f"exceed the budget of {SHARD_BUDGET_QPS}/s per service"
+            )
+        exits = {children[r].name: children[r].terminate() for r in live}
+    finally:
+        for child in children:
+            child.kill()
+        server.stop()
+    tracebacks = [children[r].name for r in live if "Traceback" in children[r].stderr()]
+    if set(exits.values()) != {0} or tracebacks:
+        raise PhaseError(f"{width} shards: exit statuses {exits}, tracebacks from {tracebacks}")
+    aws_state = pkg.fake_backend.FileBackedFakeAWSBackend(env["AGAC_FAKE_STATE"]).snapshot_state()
+    mutating = pkg.fake_backend._MUTATING_PREFIXES  # the calls that take the flock
+    mutations = sum(count for op, count in ops.items() if op.startswith(mutating))
+    flock_op_s = flock_op_seconds(pkg, env["AGAC_FAKE_STATE"])
+    return {
+        "width": width,
+        "services": n,
+        "latency_s": latency,
+        "lease_s": lease_s,
+        "create_s": created_s,
+        "elapsed_s": elapsed,
+        "objects_per_s": n / elapsed,
+        "owned": [sorted(s) for s in owned],
+        "aws_calls": {family: int(count) for family, count in sorted(calls.items())},
+        "aggregate_calls_per_s": rates,
+        "aimd_ceiling_sums": dict(sorted(ceilings.items())),
+        "journeys": journeys,
+        "kill": kill,
+        "exits": exits,
+        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
+        "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
+        "apiserver_cores_busy": own_cpu / elapsed,
+        "mutations": int(mutations),
+        "flock_op_ms": flock_op_s * 1e3,
+        "flock_busy_share": mutations * flock_op_s / elapsed,
+        "aws_state": aws_state,
     }
 
 
@@ -854,6 +1226,77 @@ def rollout(pkg, n: int) -> dict:
     }
 
 
+def shard_soak_config(pkg, n: int):
+    """The two-shard soak's harness configuration for ``n`` Services
+    (``tests/test_sharding_sim.py``: ``sharded_config`` with
+    ``TestTwoShardSoak``'s overrides): two live replicas over two
+    shards, each able to hold both, production-shaped resync, settle
+    and discovery periods, breakers armed at scale, the global AIMD
+    budget of ``bench.py``'s shard phase."""
+    return pkg.harness.SimHarnessConfig(
+        replicas=2,
+        shard_count=2,
+        shards_per_replica=2,
+        resync_period=6 * 3600.0,
+        settle_poll_interval=30.0,
+        discovery_ttl=300.0,
+        quota_accelerators=n + 50,
+        lease=pkg.leaderelection.LeaderElectionConfig(
+            lease_duration=120.0, renew_deadline=60.0, retry_period=30.0
+        ),
+        health=pkg.health.HealthConfig(
+            window=60.0,
+            min_calls=1000,
+            failure_ratio=0.5,
+            open_duration=30.0,
+            probe_budget=1,
+            aimd_qps=400.0,
+        ),
+    )
+
+
+def shard_soak(pkg, n: int) -> dict:
+    """``n`` Services, one NLB each, arrive over ``ROLLOUT_SECONDS`` of
+    virtual time at a two-shard fleet; one replica is killed at
+    ``SHARD_SOAK_KILL_AT`` and the survivor must steal its lease and
+    adopt its keyspace.  The world runs ``SHARD_SOAK_SECONDS``, then to
+    quiescence.  Returns the run's numbers, the oracle battery's and
+    the SLO oracle's findings, the journey totals, the accelerator
+    count and the final shard ownership."""
+    fuzz = pkg.fuzz
+    wall_start = time.monotonic()
+    with pkg.harness.SimHarness(config=shard_soak_config(pkg, n)) as harness:
+        for i in range(n):
+            harness.aws.add_load_balancer(f"lb{i}", REGION, fuzz._nlb_hostname(i))
+
+        def creator():
+            for i in range(n):
+                harness.cluster.create("Service", fuzz._make_service(f"svc{i}", i, False))
+                yield ROLLOUT_SECONDS / n
+
+        harness.spawn(creator(), "creator")
+        harness.after(SHARD_SOAK_KILL_AT, lambda: harness.kill_shard_replica(), "kill-replica")
+        harness.run_for(SHARD_SOAK_SECONDS)
+        quiescent = harness.run_until_quiescent(SHARD_SOAK_SECONDS, settle_window=SETTLE_WINDOW)
+        wall = time.monotonic() - wall_start
+        stats, trace_hash = harness.stats(), harness.trace_hash()
+        result = {
+            "services": n,
+            "quiescent": quiescent,
+            "wall_s": wall,
+            "stats": stats,
+            "trace_hash": trace_hash,
+            "violations": pkg.oracles.standard_oracles(harness),
+            "slo_violations": pkg.oracles.check_slo(harness),
+            "converged_total": harness.journey.converged_total,
+            "inflight": harness.journey.inflight(),
+            "accelerators": len(harness.aws.all_accelerator_arns()),
+            "ownership": {k: sorted(v) for k, v in harness.shard_ownership().items()},
+            "generations": harness.generations,
+        }
+    return result
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -917,6 +1360,75 @@ def phase_process(n: int, card: str) -> dict:
     )
     summary = {k: v for k, v in result.items() if k not in ("events", "verdicts")}
     print("process " + json.dumps(summary), flush=True)
+    return result
+
+
+def phase_shard(n: int, card: str) -> dict:
+    """``bench.py``'s scaling curve at ``SHARD_WIDTHS`` and a width-2
+    kill run, through the port's command line; ``shard_fleet`` holds
+    each run to its hard bounds."""
+    pkg = load(PORT)
+    lease = "/".join(
+        SHARD_ENV[f"AGAC_LEASE_{k}"] for k in ("DURATION", "RENEW_DEADLINE", "RETRY_PERIOD")
+    )
+    start = time.monotonic()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as workdir:
+        for width, kill_at in [*((w, None) for w in SHARD_WIDTHS), (2, SHARD_KILL_AT)]:
+            label = f"{width}-kill" if kill_at is not None else str(width)
+            rundir = pathlib.Path(workdir) / label
+            rundir.mkdir()
+            run = shard_fleet(pkg, PORT, n, width, SHARD_LATENCY, rundir, kill_at=kill_at)
+            del run["aws_state"]
+            runs[label] = run
+            kill = run["kill"]
+            print(
+                f"shard {label}: {width} x python -m {PORT} controller ({SHARD_WORKERS} workers, "
+                f"{SHARD_LATENCY} s fake AWS latency, the bench's lease timing {lease} s) "
+                f"converged {n} Services "
+                f"in {run['elapsed_s']} s = {run['objects_per_s']} objects/s after every shard "
+                f"lease was held ({run['lease_s']} s from spawn); owned {run['owned']}; "
+                f"call rates {run['aggregate_calls_per_s']} /s and AIMD ceiling sums "
+                f"{run['aimd_ceiling_sums']} /s per service (budget {SHARD_BUDGET_QPS}); "
+                f"journeys {run['journeys']}; {run['host_cores_busy']} of {os.cpu_count()} host "
+                f"cores busy ({run['apiserver_cores_busy']} in this process, the apiserver's); "
+                f"the account's flock held at most {run['flock_busy_share']} of the run "
+                f"({run['mutations']} mutating calls x {run['flock_op_ms']} ms)"
+                + ("" if kill is None else (
+                    f"; SIGKILL to replica {kill['victim']} (shards {kill['owned']}) at chains "
+                    f"{kill['chains']}, {kill['at_s']} s in; the survivor owned "
+                    f"{kill['survivor_owned']} {kill['takeover_s']} s later and the fleet "
+                    f"converged {kill['converged_after_s']} s after the kill"
+                ))
+                + f" (host-bound, the card is idle in this phase) on {card}",
+                flush=True,
+            )
+    single = runs["1"]["objects_per_s"]
+    curve = {}
+    for width in SHARD_WIDTHS:
+        run = runs[str(width)]
+        curve[str(width)] = {
+            "objects_per_s": run["objects_per_s"],
+            "speedup": run["objects_per_s"] / single,
+            "efficiency": run["objects_per_s"] / (width * single),
+            "ga_converge_p99_s": run["journeys"]["ga"]["p99_s"],
+            "host_cores_busy": run["host_cores_busy"],
+            "apiserver_cores_busy": run["apiserver_cores_busy"],
+            "flock_busy_share": run["flock_busy_share"],
+        }
+    gates = {
+        f"2-shard speedup >= {SHARD_MIN_SPEEDUP_2}": curve["2"]["speedup"] >= SHARD_MIN_SPEEDUP_2,
+        f"4-shard efficiency >= {SHARD_MIN_EFFICIENCY_4}":
+            curve["4"]["efficiency"] >= SHARD_MIN_EFFICIENCY_4,
+    }
+    result = {"runs": runs, "curve": curve, "gates": gates, "wall_s": time.monotonic() - start}
+    print(
+        f"shard: curve {curve}; bench.py's gates (not enforced here, they measure the host's "
+        f"cores): " + ", ".join(f"{k} {'met' if v else 'not met'}" for k, v in gates.items())
+        + f"; phase {result['wall_s']} s on the host of {card}",
+        flush=True,
+    )
+    print("shard " + json.dumps(result), flush=True)
     return result
 
 
@@ -1023,6 +1535,53 @@ def sim_rollout(pkg, n: int, card: str) -> dict:
     }
 
 
+def sim_shard_soak(pkg, n: int, card: str) -> dict:
+    """The two-shard soak of ``n`` Services with its mid-run kill: every
+    bound of ``TestTwoShardSoak``, and the pinned hash where one is
+    pinned."""
+    result = shard_soak(pkg, n)
+    stats = result["stats"]
+    print(
+        f"sim shard-soak: {n} Services on 2 shards, replica killed at virtual hour 3, in "
+        f"{result['wall_s']} s wall, virtual {stats['virtual_time']} s, "
+        f"{stats['aws_calls']} AWS calls, {result['converged_total']} journeys converged, "
+        f"ownership {result['ownership']}, generations {result['generations']}, "
+        f"trace={result['trace_hash'][:16]} on the host of {card}",
+        flush=True,
+    )
+    faults = {
+        key: result[key][:10] for key in ("violations", "slo_violations") if result[key]
+    }
+    if not result["quiescent"] or faults:
+        raise PhaseError(f"shard soak of {n}: quiescent={result['quiescent']} {faults}")
+    if result["converged_total"] < n or result["inflight"] or result["accelerators"] != n:
+        raise PhaseError(
+            f"shard soak of {n}: {result['converged_total']} journeys converged, "
+            f"{result['inflight']} in flight, {result['accelerators']} accelerators"
+        )
+    if list(result["ownership"].values()) != [[0, 1]] or result["generations"] < 2:
+        raise PhaseError(
+            f"shard soak of {n}: ownership {result['ownership']}, "
+            f"{result['generations']} generations"
+        )
+    pinned = SHARD_SOAK_PINS.get(n)
+    if pinned is not None and result["trace_hash"] != pinned:
+        raise PhaseError(f"shard soak of {n}: trace {result['trace_hash']} != pinned {pinned}")
+    return {
+        "services": n,
+        "wall_s": result["wall_s"],
+        "virtual_s": stats["virtual_time"],
+        "virtual_per_wall": stats["virtual_time"] / result["wall_s"],
+        "events": stats["events"],
+        "aws_calls": stats["aws_calls"],
+        "converged_total": result["converged_total"],
+        "ownership": result["ownership"],
+        "generations": result["generations"],
+        "trace_hash": result["trace_hash"],
+        "pinned": pinned is not None,
+    }
+
+
 def phase_sim(n: int, card: str) -> dict:
     pkg = load(PORT)
     start = time.monotonic()
@@ -1030,11 +1589,12 @@ def phase_sim(n: int, card: str) -> dict:
         "replay": sim_replay(pkg, card),
         "fuzz": sim_fuzz(pkg, card),
         "rollout": sim_rollout(pkg, n, card),
+        "shard_soak": sim_shard_soak(pkg, n, card),
     }
     result["wall_s"] = time.monotonic() - start
     print(
-        f"sim: replay, fuzz and rollout in {result['wall_s']} s wall (host-bound, the card "
-        f"is idle in this phase) on {card}",
+        f"sim: replay, fuzz, rollout and shard-soak in {result['wall_s']} s wall (host-bound, "
+        f"the card is idle in this phase) on {card}",
         flush=True,
     )
     print("sim " + json.dumps(result), flush=True)
@@ -1311,7 +1871,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--services", type=int, default=200, help="Services in the fleet")
     parser.add_argument(
-        "--sim-services", type=int, default=SIM_SERVICES, help="Services in the sim rollout"
+        "--sim-services", type=int, default=SIM_SERVICES,
+        help="Services in the sim rollout and the shard soak",
     )
     parser.add_argument("--seed", type=int, default=0, help="seed of the graft MLP's weights")
     args = parser.parse_args(argv)
@@ -1322,6 +1883,7 @@ def main(argv=None) -> int:
         card = phase_device(torch)
         phase_converge(args.services, card)
         phase_process(PROCESS_SERVICES, card)
+        phase_shard(SHARD_SERVICES, card)
         phase_sim(args.sim_services, card)
         phase_analysis(args.services, card)
         phase_graft(torch, args.seed, card)

@@ -37,6 +37,21 @@ def _converge(smoke, package):
 def canonical_state(fleet) -> dict:
     snap = fleet.aws.snapshot_state()
     lb_name = {lb["load_balancer_arn"]: lb["load_balancer_name"] for lb in snap["load_balancers"]}
+    bindings = {}
+    for ns, name in fleet.binding_keys:
+        binding = fleet.cluster.get("EndpointGroupBinding", ns, name)
+        bindings[f"{ns}/{name}"] = (
+            [lb_name.get(e, e) for e in binding.status.endpoint_ids],
+            binding.status.observed_generation,
+            sorted(binding.metadata.finalizers),
+        )
+    return {**canonical_aws(snap), "bindings": bindings}
+
+
+def canonical_aws(snap: dict) -> dict:
+    """A fake backend's ``snapshot_state()`` with every ARN replaced by
+    its owner's key: the chains per owner and the records per zone."""
+    lb_name = {lb["load_balancer_arn"]: lb["load_balancer_name"] for lb in snap["load_balancers"]}
     owner = {}
     by_dns = {}
     listener_owner = {}
@@ -89,19 +104,7 @@ def canonical_state(fleet) -> dict:
         )
         for zone_id, table in snap["records"].items()
     }
-    bindings = {}
-    for ns, name in fleet.binding_keys:
-        binding = fleet.cluster.get("EndpointGroupBinding", ns, name)
-        bindings[f"{ns}/{name}"] = (
-            [lb_name.get(e, e) for e in binding.status.endpoint_ids],
-            binding.status.observed_generation,
-            sorted(binding.metadata.finalizers),
-        )
-    return {
-        "chains": {k: sorted(v) for k, v in chains.items()},
-        "records": records,
-        "bindings": bindings,
-    }
+    return {"chains": {k: sorted(v) for k, v in chains.items()}, "records": records}
 
 
 def event_multiset(fleet) -> collections.Counter:

@@ -175,7 +175,11 @@ def alias_env() -> dict[str, str]:
     return dict(os.environ, PYTHONPATH=os.pathsep.join(path))
 
 
-def run_through_alias(test_file: str, timeout: float = 300) -> subprocess.CompletedProcess:
+def run_through_alias(
+    test_file: str, timeout: float = 300, marker: str = "not slow"
+) -> subprocess.CompletedProcess:
+    """``test_file`` under pytest with the alias installed, selecting
+    the tests ``marker`` matches (tier-1's ``not slow`` by default)."""
     path = os.path.join("tests", test_file)
     deselect = [
         arg for test in DESELECT.get(test_file, ()) for arg in ("--deselect", f"{path}::{test}")
@@ -183,7 +187,7 @@ def run_through_alias(test_file: str, timeout: float = 300) -> subprocess.Comple
     return subprocess.run(
         [
             sys.executable, "-c", ALIAS_BOOTSTRAP, path,
-            "-q", "-m", "not slow", "-p", "no:cacheprovider", "-p", "no:randomly",
+            "-q", "-m", marker, "-p", "no:cacheprovider", "-p", "no:randomly",
             "-p", "no:xdist", *deselect,
         ],
         cwd=REPO,
@@ -194,12 +198,12 @@ def run_through_alias(test_file: str, timeout: float = 300) -> subprocess.Comple
     )
 
 
-def started_runs(files: list[str], parallel: int):
+def started_runs(files: list[str], parallel: int, marker: str = "not slow"):
     """A module fixture's body: every file's run, started together on
     first use, ``parallel`` at a time."""
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=parallel)
     try:
-        yield {name: pool.submit(run_through_alias, name) for name in files}
+        yield {name: pool.submit(run_through_alias, name, marker=marker) for name in files}
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
