@@ -460,10 +460,14 @@ def invalidate_read_plane() -> None:
     ``Manager.on_reshard``, so a replica adopting another process's
     keyspace re-reads AWS instead of trusting snapshots taken before
     the ownership change — a stale discovery snapshot at adoption time
-    means duplicate accelerators."""
+    means duplicate accelerators.  A durable fake account
+    (``AGAC_FAKE_STATE``) re-reads its file on the next call too."""
     with _lock:
         discovery, zones = _discovery_cache, _zone_cache
         topology, records = _topology_cache, _record_cache
+        backend = _fake_backend
+    if isinstance(backend, FileBackedFakeAWSBackend):
+        backend.invalidate_reads()
     if discovery is not None:
         discovery.invalidate()
     if zones is not None:

@@ -1321,7 +1321,9 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
     # slice of the scaling curve.  Reads may serve state up to this
     # many seconds stale (mutations still force-reload under the
     # flock), which is exactly the read-after-write consistency model
-    # the class docstring documents.
+    # the class docstring documents.  The bound counts from the start
+    # of the last COMPLETED reload: readers that arrive while another
+    # thread reloads wait for it rather than serve the state before it.
     READ_RELOAD_INTERVAL = 0.05
 
     def __init__(self, state_path: str, **kwargs):
@@ -1330,6 +1332,8 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
         self._state_stamp: Optional[tuple] = None
         self._state_serial = 0
         self._last_reload_check = -1.0
+        # reads after this time must re-check the file (invalidate_reads)
+        self._fresh_after = float("-inf")
         # interprocess mutation arbitration (see class docstring);
         # thread-local depth makes driver orchestrations that issue
         # several ops reentrancy-safe within one thread
@@ -1496,33 +1500,48 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
         except ValueError:
             return None
 
+    def invalidate_reads(self) -> None:
+        """The next read re-checks the file, whatever the throttle
+        says: for a process that starts serving keys another process
+        wrote (a shard adoption), every read after this call sees each
+        write that other process committed before it."""
+        self._fresh_after = clockseam.monotonic()
+
     def _reload_if_changed(self, force: bool = False) -> None:
-        if not force:
-            # read path: throttle the stat+parse to the documented
-            # staleness window (mutations always force through this)
-            now = clockseam.monotonic()
-            if 0.0 <= now - self._last_reload_check < self.READ_RELOAD_INTERVAL:
-                return
-            self._last_reload_check = now
-        stamp = self._stat_stamp()
-        if stamp is None:
-            return
-        if stamp == self._state_stamp and not force:
-            return
-        # serial short-circuit: stat stamps are not
-        # collision-proof (the forced mutation path exists because of
-        # that), but the embedded write serial IS — it only advances
-        # under the flock.  When the file still carries the serial this
-        # process last wrote/loaded, the ~4 ms parse+apply is skipped;
-        # with N concurrent writers that converts 1/N of every flock
-        # critical section into a 48-byte read.
-        serial = self._file_serial()
-        if serial is not None and serial == getattr(self, "_state_serial", None):
-            self._state_stamp = stamp
-            return
-        with open(self._state_path) as f:
-            data = json.load(f)
+        # reloads (stat, parse, apply) hold the state lock, one at a
+        # time: a reader that arrives during one waits for it instead
+        # of serving the state before it, and an older file's apply can
+        # never land after a newer one's
         with self._lock:
+            if not force:
+                # read path: throttle the stat+parse to the documented
+                # staleness window (mutations always force through this)
+                now = clockseam.monotonic()
+                checked = self._last_reload_check
+                if (
+                    checked >= self._fresh_after
+                    and 0.0 <= now - checked < self.READ_RELOAD_INTERVAL
+                ):
+                    return
+                self._last_reload_check = now
+            stamp = self._stat_stamp()
+            if stamp is None:
+                return
+            if stamp == self._state_stamp and not force:
+                return
+            # serial short-circuit: stat stamps are not
+            # collision-proof (the forced mutation path exists because of
+            # that), but the embedded write serial IS — it only advances
+            # under the flock.  When the file still carries the serial this
+            # process last wrote/loaded, the ~4 ms parse+apply is skipped;
+            # with N concurrent writers that converts 1/N of every flock
+            # critical section into a 48-byte read.
+            serial = self._file_serial()
+            if serial is not None and serial == getattr(self, "_state_serial", None):
+                self._state_stamp = stamp
+                return
+            with open(self._state_path) as f:
+                data = json.load(f)
             self._apply_state(data)
             self._state_serial = int(data.get("serial", 0) or 0)
-        self._state_stamp = stamp
+            self._state_stamp = stamp

@@ -582,8 +582,10 @@ def run_controller(args) -> int:
         obs_stackprof.profiler().start(stop)
     tracker = shared_health_tracker()
     manager = Manager(health=tracker, metrics_registry=obs_metrics.registry())
-    # reshard adoptions re-read AWS through fresh snapshots
+    # reshard adoptions re-read AWS through fresh snapshots, from the
+    # moment the keys are served
     manager.on_reshard = invalidate_read_plane
+    manager.on_adopt = invalidate_read_plane
 
     import threading
 

@@ -144,17 +144,28 @@ def with_shard_guard(shard_filter, process):
     drain/handoff protocol exists to prevent), so the worker skips it:
     ``Result(skip=True)`` forgets the item without closing its journey
     and without any AWS call having run.  ``OWNS_ALL`` short-circuits,
-    so single-shard mode pays nothing."""
+    so single-shard mode pays nothing.
+
+    The check alone cannot stop a reconcile already past it: the
+    worker's key stays in the filter's ``inflight_keys`` for the whole
+    process func, entered BEFORE the check (a membership tick that
+    stops serving the key either sees the worker there or is seen by
+    the check), and the membership hands a key to another replica only
+    once no worker here is inside it."""
     if shard_filter is None or shard_filter.all_shards:
         return process
 
     def guarded(arg):
         with obs_profile.stage("shard-filter"):
             key = arg if isinstance(arg, str) else meta_namespace_key(arg)
+            shard_filter.inflight_keys.append(key)
             owned = shard_filter.owns_key(key)
-        if not owned:
-            return Result(skip=True, reason="not-owner")
-        return process(arg)
+        try:
+            if not owned:
+                return Result(skip=True, reason="not-owner")
+            return process(arg)
+        finally:
+            shard_filter.inflight_keys.remove(key)
 
     guarded.__name__ = getattr(process, "__name__", "process")
     return guarded

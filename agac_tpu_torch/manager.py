@@ -168,6 +168,13 @@ class Manager:
         # cache creates DUPLICATE accelerators.  Wired by cmd/root
         # (factory caches) and the sim harness (per-replica world).
         self.on_reshard: Optional[Callable[[], None]] = None
+        # fired by the membership just BEFORE this replica starts
+        # serving keys another process served (a claimed lease, an
+        # adopted gainer shard), ahead of the resync above: a worker
+        # that pops such a key in between must not read the old
+        # snapshots either.  Wired by cmd/root (factory caches and the
+        # durable fake account); the sim leaves it unset.
+        self.on_adopt: Optional[Callable[[], None]] = None
         # the orphan GC sweeper, built by run() when its
         # interval is > 0; None = disabled (reference parity)
         self.gc: Optional[GarbageCollector] = None
@@ -210,6 +217,7 @@ class Manager:
             # denominator grew to max(from, to)) without the full
             # handoff resync an ownership change triggers
             self.shard_membership.on_quota_change = self._on_shard_quota_change
+            self.shard_membership.on_adopt = self._on_shard_adopt
             # load-aware placement input: measured managed
             # keys per shard under the live ring
             self.shard_membership.fleet_key_counts = self._count_keys_by_shard
@@ -368,6 +376,10 @@ class Manager:
             owned=sorted(membership.owned_shards()),
             quota_fraction=round(membership.quota_fraction(), 4),
         )
+
+    def _on_shard_adopt(self) -> None:
+        if self.on_adopt is not None:
+            self.on_adopt()
 
     def _on_shard_quota_change(self, membership: ShardMembership) -> None:
         """A resize transition began: the quota denominator moved but

@@ -20,7 +20,8 @@ Safety argument the exclusive-ownership oracle leans on:
   lease) drops the shard from its owned set IMMEDIATELY, before the
   next enqueue can consult the filter;
 - a replica over capacity releases the lease only AFTER dropping the
-  shard locally, so the next claimant can never overlap with it.
+  shard locally and after its workers' reconciles of the shard's keys
+  have returned, so the next claimant can never overlap with it.
 
 Elastic resharding makes ``shard_count`` a LIVE target
 instead of a boot constant.  The fleet coordinates through ONE extra
@@ -43,20 +44,22 @@ owner), in marker order:
 
 1. the old owner keeps serving a re-homed key until the gainer shard's
    lease is CLAIMED (the new owner is standing by);
-2. the old owner then stops serving the moving keys and writes its
-   drain ack — the stop is local-synchronous with the write, so the
-   old owner can never serve past its own ack;
+2. the old owner then stops serving the moving keys, and writes its
+   drain ack once none of its workers is still inside a reconcile of
+   one of them (the filter's in-flight registry), so no reconcile of
+   the old owner outlives its ack;
 3. the new owner adopts only after observing every donor's drain ack:
    it starts serving, runs the reshard resync (journeys stamped
    ``trigger=resize``), and writes its handoff ack;
 4. when every gainer has acked, all replicas flip to the new ring and
    obsolete leases (shrink) are released.
 
-So no key is ever double-mutated (the old owner stops strictly before
-the new owner starts) and no key is unowned longer than one handoff
-window (the drain begins only once the adopter is standing by).  The
-sim's key-level exclusive-ownership oracle holds *throughout* the
-transition, not just at the endpoints.
+So no key is ever double-mutated (the old owner's last reconcile of it
+returns strictly before the new owner starts) and no key is unowned
+longer than one handoff window (the drain begins only once the adopter
+is standing by; the window includes the old owner's reconciles still
+in flight at the stop).  The sim's key-level exclusive-ownership oracle
+holds *throughout* the transition, not just at the endpoints.
 
 Placement is load-aware: every renew publishes the
 replica's measured keys-owned into its lease records, claims prefer
@@ -125,6 +128,10 @@ LOAD_REFRESH_TICKS = 10
 # 4-shard bench point).  Below capacity, or mid-resize, every tick
 # probes — claims and drain/handoff progress stay tick-latency.
 PROBE_TICKS = 5
+
+# how often a shutting-down replica re-checks its in-flight reconciles
+# before releasing its leases (seconds; threaded runtime only)
+RELEASE_POLL = 0.05
 
 # per-ring-version key→shard memo bound (satellite: the SHA-256 ring
 # walk is off the enqueue/drift/GC hot path once a key has been seen);
@@ -221,6 +228,12 @@ class ShardFilter:
         # ring.version -> {key: shard}; tiny dict of dicts so a
         # transition's two rings memoize independently
         self._memos: dict[str, dict[str, int]] = {}
+        # one entry per worker inside a guarded process func, its key
+        # (``with_shard_guard`` appends and removes; each is one atomic
+        # list operation): the membership hands a key to another
+        # replica (drain ack, shed, release) only once no worker of
+        # this replica is still reconciling it
+        self.inflight_keys: list[str] = []
 
     @property
     def all_shards(self) -> bool:
@@ -297,6 +310,16 @@ class ShardFilter:
         }
         info["owned"] = self.owns_key(key)
         return info
+
+    def inflight(self, ring: HashRing, shard: int, moving_to: Optional[HashRing] = None) -> list[str]:
+        """Keys a worker is reconciling right now that ``ring`` puts on
+        ``shard`` (and, with ``moving_to``, that the next ring puts
+        elsewhere: the keys a drain of ``shard`` hands over)."""
+        return [
+            key for key in sorted(set(self.inflight_keys))
+            if self._shard_of(ring, key) == shard
+            and (moving_to is None or self._shard_of(moving_to, key) != shard)
+        ]
 
     def owns(self, namespace: str, name: str) -> bool:
         return self.owns_key(f"{namespace}/{name}")
@@ -476,6 +499,9 @@ class ShardMembership:
         self.plan: Optional[RingTransition] = None
         self.resize_epoch = 0
         self._drained_local: set[int] = set()
+        # donor shards whose moving keys this replica stopped serving,
+        # their drain ack waiting on reconciles still in flight
+        self._draining_local: set[int] = set()
         self._adopted_local: set[int] = set()
         # gainer shards adopted locally whose reshard resync the
         # manager has not yet run (the ack marker waits on it)
@@ -503,6 +529,9 @@ class ShardMembership:
         # OTHER holder is observed — a shed into a fleet with no taker
         # would just re-orphan the keys
         self._last_resort: set[int] = set()
+        # shards dropped locally whose lease is released once no
+        # reconcile of their keys is in flight here
+        self._release_pending: set[int] = set()
         # ring-lease load board state: publish beat + per-peer
         # (beat, tick-last-advanced) liveness tracking
         self._load_beat = 0
@@ -514,6 +543,11 @@ class ShardMembership:
         # changes without an ownership change — entering a transition.
         # Ownership changes and transition completion fire on_change.
         self.on_quota_change: Optional[Callable[["ShardMembership"], None]] = None
+        # fired just before this replica starts serving keys another
+        # process served (a claimed lease, an adopted gainer shard): a
+        # process drops its read snapshots there, so no reconcile of
+        # those keys reads AWS as it stood before the handover
+        self.on_adopt: Optional[Callable[[], None]] = None
 
         metrics = instruments.sharding_instruments(registry)
         self._metrics = metrics
@@ -571,7 +605,8 @@ class ShardMembership:
             return None
         return _TransitionView(
             self.ring, next_ring,
-            frozenset(self._drained_local), frozenset(self._adopted_local),
+            frozenset(self._drained_local | self._draining_local),
+            frozenset(self._adopted_local),
         )
 
     def quota_fraction(self) -> float:
@@ -684,6 +719,7 @@ class ShardMembership:
                     "shard %d lease lost to %s (identity %s)",
                     shard, holder or "<unheld>", self.identity,
                 )
+        self._flush_releases(client)
         if probe_due:
             changed |= self._maybe_shed(client, owned)
             changed |= self._claim_one(client, owned)
@@ -771,6 +807,7 @@ class ShardMembership:
             previous = elector.observed_holder()
             acquired, holder = elector.try_acquire_or_renew(client)
             if acquired:
+                self._adopting()
                 owned.add(shard)
                 self._publish(owned)
                 elector.set_leading(True)
@@ -827,13 +864,14 @@ class ShardMembership:
             self.config.rebalance_hysteresis_keys
         ):
             return False
-        # drop locally FIRST, then release, so the claimant can never
+        # drop locally FIRST, then release once no reconcile of the
+        # victim's keys is in flight here, so the claimant can never
         # overlap with us (the release_all ordering)
         owned.discard(victim)
         self._publish(owned)
-        elector = self._electors[victim]
-        elector.set_leading(False)
-        elector.release(client)
+        self._electors[victim].set_leading(False)
+        self._release_pending.add(victim)
+        self._flush_releases(client)
         self._observe(victim, None)
         self._recently_shed[victim] = self._tick_serial
         self._last_shed_tick = self._tick_serial
@@ -842,6 +880,20 @@ class ShardMembership:
             victim, my_load, min(peer_loads),
         )
         return True
+
+    def _flush_releases(self, client) -> None:
+        """Release every lease dropped locally whose keys no worker
+        here is reconciling any more."""
+        for shard in sorted(self._release_pending):
+            if shard in self._owned:
+                self._release_pending.discard(shard)  # claimed back
+            elif not self.filter.inflight(self.ring, shard):
+                self._release_pending.discard(shard)
+                self._electors[shard].release(client)
+
+    def _adopting(self) -> None:
+        if self.on_adopt is not None:
+            self.on_adopt()
 
     def _key_counts(self) -> dict[int, int]:
         if self.fleet_key_counts is None:
@@ -1060,6 +1112,7 @@ class ShardMembership:
             self.ring = HashRing(origin, self.config.vnodes)
         self.resize_epoch = epoch
         self._drained_local.clear()
+        self._draining_local.clear()
         self._adopted_local.clear()
         self._resync_pending.clear()
         self._ack_pending.clear()
@@ -1095,22 +1148,32 @@ class ShardMembership:
         epoch = self.resize_epoch
         markers: dict[str, str] = {}
         # DONOR drain: stop serving moving keys once every gainer that
-        # receives them is standing by (lease claimed); the local stop
-        # happens in the same step as the ack write, so this replica
-        # can never serve past its own ack
+        # receives them is standing by (lease claimed), then ack the
+        # drain once no worker here is still reconciling one of them:
+        # the filter refuses the moving keys from the stop on, and the
+        # ack waits out the reconciles that passed it before, so no
+        # reconcile of this replica outlives its own ack
         for shard in sorted(self._owned):
             gainer_set = plan.gainers_of.get(shard)
             if gainer_set is None or shard in self._drained_local:
                 continue
-            if all(self._shard_claimed(gainer) for gainer in gainer_set):
-                self._drained_local.add(shard)
+            if shard not in self._draining_local:
+                if not all(self._shard_claimed(gainer) for gainer in gainer_set):
+                    continue
+                self._draining_local.add(shard)
                 with self._lock:
                     self.map_version += 1
-                markers[f"{ANN_DRAINED}{shard}"] = str(epoch)
-                klog.infof(
-                    "resize epoch %d: shard %d drained (gainers %s standing by)",
-                    epoch, shard, sorted(gainer_set),
-                )
+            if self.filter.inflight(self.ring, shard, moving_to=self.next_ring):
+                continue
+            # added before discarded, so the filter sees the shard in
+            # one set or the other throughout
+            self._drained_local.add(shard)
+            self._draining_local.discard(shard)
+            markers[f"{ANN_DRAINED}{shard}"] = str(epoch)
+            klog.infof(
+                "resize epoch %d: shard %d drained (gainers %s standing by)",
+                epoch, shard, sorted(gainer_set),
+            )
         # GAINER adopt: start serving the moving keys only once every
         # donor has acked its drain; the reshard resync (and then the
         # handoff ack) is driven by the manager, which owns the
@@ -1121,6 +1184,7 @@ class ShardMembership:
                 continue
             drained = self._observed_drained | frozenset(self._drained_local)
             if donor_set <= drained:
+                self._adopting()
                 self._adopted_local.add(shard)
                 self._resync_pending.add(shard)
                 with self._lock:
@@ -1209,6 +1273,7 @@ class ShardMembership:
         self.next_ring = None
         self.plan = None
         self._drained_local.clear()
+        self._draining_local.clear()
         self._adopted_local.clear()
         self._resync_pending.clear()
         obsolete = sorted(shard for shard in self._owned if shard >= target)
@@ -1256,10 +1321,18 @@ class ShardMembership:
         lease duration."""
         owned = sorted(self._owned)
         self._publish(set())
-        for shard in owned:
+        # the successor claims at once: let the reconciles that passed
+        # the filter before the drop return first, for at most the
+        # renew deadline (the longest a holder may go without renewing)
+        waited = 0.0
+        while self.filter.inflight_keys and waited < self.config.lease.renew_deadline:
+            threading.Event().wait(RELEASE_POLL)
+            waited += RELEASE_POLL
+        for shard in sorted(set(owned) | self._release_pending):
             elector = self._electors[shard]
             elector.set_leading(False)
             elector.release(client)
+        self._release_pending.clear()
         # clean shutdown removes this replica's load-board entry so
         # peers stop scoring placement against a gone replica
         try:

@@ -47,7 +47,23 @@ Phases, in order; any failure exits non-zero before the last line:
    shard.  Objects/s, speedup and efficiency per width print beside
    ``bench.py``'s gates, which measure the host and are not enforced.
    Host code: the card is idle in this phase.
-5. ``sim``: the port's virtual-time runtime, which runs the whole
+5. ``resize``: the live elastic resize as the operations runbook runs
+   it, on the ``shard`` phase's fleet.  Two ``python -m agac_tpu_torch
+   controller --shard-count 2 --shards-per-replica 4`` replicas converge
+   200 Services; three eighths in, ``python -m agac_tpu_torch
+   resize-shards -n 4`` grows the ring under load while the last
+   quarter of the Services is created, and both replicas must report
+   ring ``4x64`` stable.  ``resize-shards -n 2`` then shrinks it, the
+   holder of shard 0 gets SIGKILL mid-transition, and the survivor must
+   steal its leases and finish alone at ``2x64``.  A watch reads the
+   shared account every 0.1 s through the run: no accelerator owner
+   may ever repeat, and the fleet must create each accelerator once,
+   end with exactly 200 complete chains after each resize, stay within
+   the 400/s per-service budget at every ring and answer
+   ``converged`` for every Service.  Transition times, handoff
+   windows, moved keys and the resize journeys' percentiles print
+   beside the bounds.  Host code: the card is idle in this phase.
+6. ``sim``: the port's virtual-time runtime, which runs the whole
    Manager on one thread and folds every dispatch into a SHA-256
    event-trace hash.  ``replay`` replays every checked-in incident
    capture (``tests/captures/*.jsonl``) and requires a byte-identical
@@ -67,7 +83,7 @@ Phases, in order; any failure exits non-zero before the last line:
    of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
    hash.  The pins are what the reference package computes for the
    same runs.  Host code: the card is idle in this phase.
-6. ``analysis``: the port's static analyses over its own tree, then
+7. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
    determinism, confinement) must pass their gate with the port's
@@ -77,7 +93,7 @@ Phases, in order; any failure exits non-zero before the last line:
    watchdog's observed lock edges and stage-tagged writes must fall
    inside the static lock graph and footprint table.  Host code: the
    card is idle in this phase.
-7. ``graft``: the torch twin of the MLP, forward and
+8. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points; then the
    JAX program's multi-chip dry run, one train step over a 4 x 2 data x
@@ -89,7 +105,7 @@ kernel), so the kernel line lists none.  The last line is
 ``{"ok": true, "device": {...}}``.
 
 The fleet helpers, ``converge``, ``process``, ``shard_fleet``,
-``rollout`` and ``shard_soak`` take the package as a parameter so that
+``resize_fleet``, ``rollout`` and ``shard_soak`` take the package as a parameter so that
 tests can run the same fleet through the reference; this script itself
 only ever loads the port.
 """
@@ -100,8 +116,10 @@ import argparse
 import concurrent.futures
 import importlib
 import json
+import multiprocessing
 import os
 import pathlib
+import re
 import signal
 import socket
 import subprocess
@@ -179,6 +197,21 @@ SHARD_ENV = {
     "AGAC_POLL_INTERVAL": "0.02",
     "AGAC_POLL_TIMEOUT": "5",
 }
+
+# the resize phase: the runbook's live elastic resize (docs/operations.md:466-475)
+# on the shard phase's fleet.  Two replicas at two shards, each allowed four
+# (the runbook raises --shards-per-replica before growing), grow to four
+# shards and shrink back to two
+RESIZE_FROM, RESIZE_TO, RESIZE_CAPACITY = 2, 4, 4
+# shares of the fleet created before the grow, and complete before it is
+# requested; bench.py's creation batch
+RESIZE_FIRST, RESIZE_AT = 0.75, 0.375
+RESIZE_BATCH = 8
+# the duplicate watch reads the state file every RESIZE_POLL s, and fails
+# when two reads are more than RESIZE_POLL_BOUND s apart
+RESIZE_POLL, RESIZE_POLL_BOUND = 0.1, 0.5
+# the states in which the shrink's kill lands
+RESIZE_STATES = ("draining", "adopting")
 
 # the sim phase
 CAPTURES = REPO / "tests" / "captures"
@@ -272,6 +305,8 @@ def load(package: str = PORT) -> types.SimpleNamespace:
         oracles=mod("sim.oracles"),
         replay=mod("sim.replay"),
         fuzz=mod("sim.fuzz"),
+        ring=mod("sharding.ring"),
+        slo=mod("observability.slo"),
     )
 
 
@@ -863,14 +898,41 @@ def journey_counts(pkg, texts: list[str]) -> dict:
     converge percentiles."""
     families, _ = pkg.fleet.merge_expositions({f"replica-{i}": t for i, t in enumerate(texts)})
     empty = pkg.fleet.Family("")
-    closed = {"spec": 0, "handoff": 0}
+    closed = {"spec": 0, "handoff": 0, "resize": 0}
     for sample, value in families.get("agac_journey_converge_seconds", empty).samples.items():
         for trigger in closed:
             if "_count{" in sample and f'trigger="{trigger}"' in sample:
                 closed[trigger] += int(value)
     inflight = sum(families.get("agac_journey_inflight", empty).samples.values())
     ga = pkg.fleet.converge_percentiles(families)["ga"]
-    return {**closed, "inflight": int(inflight), "ga": ga}
+    ga_resize = trigger_percentiles(pkg, families, "resize")
+    return {**closed, "inflight": int(inflight), "ga": ga, "ga_resize": ga_resize}
+
+
+def trigger_percentiles(pkg, families: dict, trigger: str) -> dict:
+    """The GA controllers' journey count and converge p50/p99 for one
+    ``trigger``, read off the merged histogram as
+    ``converge_percentiles`` reads the spec journeys."""
+    family = families.get("agac_journey_converge_seconds")
+    buckets: dict[float, float] = {}
+    total = 0.0
+    for sample, value in (family.samples.items() if family is not None else ()):
+        if f'trigger="{trigger}"' not in sample or not any(
+            f'controller="{c}"' in sample for c in pkg.slo.GA_CONTROLLERS
+        ):
+            continue
+        if "_bucket{" in sample:
+            le = sample.split('le="', 1)[1].split('"', 1)[0]
+            if le != "+Inf":
+                buckets[float(le)] = buckets.get(float(le), 0.0) + value
+        elif "_count{" in sample:
+            total += value
+    ordered = sorted(buckets.items())
+    return {
+        "count": int(total),
+        "p50_s": pkg.slo.estimate_quantile(ordered, total, 0.5),
+        "p99_s": pkg.slo.estimate_quantile(ordered, total, 0.99),
+    }
 
 
 def flock_op_seconds(pkg, state_path: str, ops: int = 21) -> float:
@@ -886,6 +948,36 @@ def flock_op_seconds(pkg, state_path: str, ops: int = 21) -> float:
         writers[i % 2].add_hosted_zone(f"flock-probe-{i}.example.com")
         times.append(time.perf_counter() - start)
     return sorted(times)[ops // 2]
+
+
+def shard_env(n: int, latency: float, workdir: pathlib.Path) -> dict:
+    """The sharded fleet's environment (``bench.py:1389-1411``): the
+    chart's no-credentials fake AWS, one durable account for every
+    replica in ``workdir``, ``latency`` s per call, room for ``n``
+    accelerators, the bench's AIMD budget and lease timing."""
+    return dict(
+        os.environ,
+        AGAC_CLOUD="fake",
+        AGAC_FAKE_STATE=str(workdir / "aws-state.json"),
+        AGAC_FAKE_LBS="=".join(SHARD_LB),
+        AGAC_FAKE_LATENCY=str(latency),
+        AGAC_FAKE_QUOTA_ACCELERATORS=str(n + 20),
+        AGAC_API_HEALTH_AIMD_QPS=str(SHARD_BUDGET_QPS),
+        POD_NAMESPACE=LEASE_NAMESPACE,
+        **SHARD_ENV,
+    )
+
+
+def shard_controller_argv(
+    package: str, kubeconfig: pathlib.Path, port: int, shard_count: int, placement: list[str]
+) -> list[str]:
+    """One replica of ``bench.py``'s sharded fleet (``bench.py:1414-1427``)."""
+    return [
+        sys.executable, "-m", package, "controller", "--kubeconfig", str(kubeconfig),
+        "-c", "bench-shard", "-w", str(SHARD_WORKERS),
+        "--queue-qps", "1000", "--queue-burst", "1000",
+        "--health-port", str(port), "--shard-count", str(shard_count), *placement,
+    ]
 
 
 def shard_fleet(
@@ -926,17 +1018,7 @@ def shard_fleet(
     Service, and none is counted twice as spec); after a kill, the
     survivor owns every shard; every live replica exits 0 on SIGTERM.
     Returns the run's times, telemetry and the final AWS state."""
-    env = dict(
-        os.environ,
-        AGAC_CLOUD="fake",
-        AGAC_FAKE_STATE=str(workdir / "aws-state.json"),
-        AGAC_FAKE_LBS="=".join(SHARD_LB),
-        AGAC_FAKE_LATENCY=str(latency),
-        AGAC_FAKE_QUOTA_ACCELERATORS=str(n + 20),
-        AGAC_API_HEALTH_AIMD_QPS=str(SHARD_BUDGET_QPS),
-        POD_NAMESPACE=LEASE_NAMESPACE,
-        **SHARD_ENV,
-    )
+    env = shard_env(n, latency, workdir)
     if width == 1:
         placement = ["--disable-leader-election"]
     else:
@@ -951,10 +1033,7 @@ def shard_fleet(
         for replica, port in enumerate(ports):
             children.append(Child(
                 f"controller-{replica}",
-                [sys.executable, "-m", package, "controller", "--kubeconfig", str(kubeconfig),
-                 "-c", "bench-shard", "-w", str(SHARD_WORKERS),
-                 "--queue-qps", "1000", "--queue-burst", "1000",
-                 "--health-port", str(port), "--shard-count", str(width), *placement],
+                shard_controller_argv(package, kubeconfig, port, width, placement),
                 env, workdir,
             ))
 
@@ -1101,6 +1180,463 @@ def shard_fleet(
         "flock_op_ms": flock_op_s * 1e3,
         "flock_busy_share": mutations * flock_op_s / elapsed,
         "aws_state": aws_state,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the resize phase: the live elastic resize over a package's controller processes
+# ---------------------------------------------------------------------------
+
+def _watch_state(package: str, state_path: str, sent, stop, ready, out_path: str) -> None:
+    """``DuplicateWatch``'s loop, in a process of its own: read the
+    state every ``RESIZE_POLL`` s until ``stop``, then write the faults,
+    the read count and the longest gap between reads to ``out_path``."""
+    aws = importlib.import_module(f"{package}.cloudprovider.aws.fake_backend")
+    account = aws.FileBackedFakeAWSBackend(state_path)
+    faults: list[str] = []
+    polls, max_gap, last = 0, 0.0, None
+    while True:
+        # the state first: every accelerator in it belongs to a Service
+        # counted before this read of the count
+        owners = [o for o in account.accelerator_owners().values() if o]
+        chains = account.chain_counts()
+        created = sent.value
+        now = time.monotonic()
+        if last is not None:
+            max_gap = max(max_gap, now - last)
+        last, polls = now, polls + 1
+        repeated = sorted({o for o in owners if owners.count(o) > 1})
+        if (repeated or max(chains) > created) and len(faults) < 20:
+            faults.append(
+                f"read {polls}: chains {chains} for {created} Services created, "
+                f"owners repeated {repeated}"
+            )
+        ready.set()
+        if stop.wait(RESIZE_POLL):
+            break
+    pathlib.Path(out_path).write_text(
+        json.dumps({"faults": faults, "polls": polls, "max_gap_s": max_gap})
+    )
+
+
+class DuplicateWatch:
+    """Reads the shared account's state file every ``RESIZE_POLL`` s for
+    as long as the run lasts, in a process of its own (a thread would
+    share this process's interpreter with the apiserver, which can
+    stall it).  An accelerator owner tag that repeats, or more
+    accelerators than Services whose create was sent, is a duplicate:
+    ``check`` raises it, and a gap between reads over
+    ``RESIZE_POLL_BOUND``."""
+
+    def __init__(self, package: str, state_path: str, workdir: pathlib.Path):
+        context = multiprocessing.get_context("spawn")
+        self._sent = context.Value("i", 0)
+        self._stop, self._ready = context.Event(), context.Event()
+        self._out = workdir / "duplicate-watch.json"
+        self._process = context.Process(
+            target=_watch_state, name="duplicate-watch", daemon=True,
+            args=(package, state_path, self._sent, self._stop, self._ready, str(self._out)),
+        )
+        self.faults: list[str] = []
+        self.polls = 0
+        self.max_gap_s = 0.0
+
+    def sending(self) -> None:
+        """Count one Service as created, before its create is sent."""
+        with self._sent.get_lock():
+            self._sent.value += 1
+
+    def __enter__(self) -> "DuplicateWatch":
+        self._process.start()
+        if not self._ready.wait(PROCESS_DEADLINE):
+            self._process.kill()
+            raise PhaseError("the duplicate watch never read the state file")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._process.join(JOIN_TIMEOUT)
+        if self._process.is_alive():
+            self._process.kill()
+            self._process.join(JOIN_TIMEOUT)
+        if self._out.exists():
+            result = json.loads(self._out.read_text())
+            self.faults, self.polls = result["faults"], result["polls"]
+            self.max_gap_s = result["max_gap_s"]
+
+    def check(self) -> None:
+        if self._process.exitcode != 0 or not self.polls:
+            raise PhaseError(f"the duplicate watch exited {self._process.exitcode}")
+        if self.faults:
+            raise PhaseError(f"duplicate accelerators: {self.faults}")
+        if self.max_gap_s > RESIZE_POLL_BOUND:
+            raise PhaseError(
+                f"the duplicate watch went {self.max_gap_s} s between reads "
+                f"(bound {RESIZE_POLL_BOUND} s)"
+            )
+
+
+def resize_cli(package: str, kubeconfig: pathlib.Path, count: int, epoch: int, env: dict) -> str:
+    """``python -m <package> resize-shards -n count``, as the runbook
+    runs it; it must exit 0 and name the new ``epoch``."""
+    run = subprocess.run(
+        [sys.executable, "-m", package, "resize-shards", "-n", str(count),
+         "--kubeconfig", str(kubeconfig)],
+        cwd=REPO, env=env, stdin=subprocess.DEVNULL, capture_output=True, text=True,
+        timeout=120,
+    )
+    if run.returncode != 0 or f"epoch {epoch}" not in run.stdout:
+        raise PhaseError(
+            f"resize-shards -n {count}: exit {run.returncode}, stdout {run.stdout!r}, "
+            f"stderr {run.stderr[-2000:]!r} (want exit 0 and epoch {epoch})"
+        )
+    return run.stdout
+
+
+def moved_keys(pkg, n: int, old: int, new: int) -> int:
+    """How many of the fleet's ``n`` keys the ring re-homes from
+    ``old`` to ``new`` shards."""
+    rings = pkg.ring.HashRing(old), pkg.ring.HashRing(new)
+    keys = [f"default/{make_shard_service(pkg, i).metadata.name}" for i in range(n)]
+    return sum(rings[0].shard_for_key(k) != rings[1].shard_for_key(k) for k in keys)
+
+
+HANDOFF_LINE = re.compile(
+    r"^I\d{4} (\d\d):(\d\d):(\d\d)\.(\d{3}) \S+ resize epoch (\d+): shard (\d+) "
+    r"(drained|adopting)\b"
+)
+
+
+def handoff_windows(stderr_texts: list[str], requested: dict[int, float]) -> dict:
+    """Each replica's ``resize epoch E: shard S drained`` and ``...
+    adopting`` log lines, in s after the epoch's request (``requested``:
+    epoch -> local seconds of the day), keyed ``shard@replica``; and per
+    epoch the window from the first drain to the last adoption."""
+    out: dict[str, dict] = {}
+    for replica, text in enumerate(stderr_texts):
+        for line in text.splitlines():
+            match = HANDOFF_LINE.match(line)
+            if match is None:
+                continue
+            h, m, sec, ms, epoch, shard, what = match.groups()
+            if int(epoch) not in requested:
+                continue
+            at = int(h) * 3600 + int(m) * 60 + int(sec) + int(ms) / 1e3
+            entry = out.setdefault(epoch, {"drained": {}, "adopting": {}})
+            entry[what][f"{shard}@{replica}"] = (at - requested[int(epoch)]) % 86400.0
+    for entry in out.values():
+        if entry["drained"] and entry["adopting"]:
+            entry["window_s"] = max(entry["adopting"].values()) - min(entry["drained"].values())
+    return out
+
+
+def _local_seconds() -> float:
+    """Seconds of the local day, the clock the children's log lines read."""
+    now = time.time()
+    local = time.localtime(now)
+    return local.tm_hour * 3600 + local.tm_min * 60 + local.tm_sec + now % 1.0
+
+
+def resize_fleet(pkg, package: str, n: int, latency: float, workdir: pathlib.Path) -> dict:
+    """The runbook's live elastic resize (``docs/operations.md:466-475``)
+    on ``bench.py``'s sharded fleet: two ``python -m <package>
+    controller`` replicas at ``--shard-count 2``, each allowed four
+    shards (the runbook raises ``--shards-per-replica`` before growing),
+    one apiserver and one flock-arbitrated fake account at ``latency``
+    s per call, and ``n`` Services on one NLB.
+
+    (a) Three quarters of the Services are created, 8 at a time, once
+    shards 0 and 1 are held; when three eighths of the chains are
+    complete, ``resize-shards -n 4`` runs and the rest are created
+    during the transition.  (b) Both replicas must then report the new
+    ring stable (``4x64``, epoch 1, no handoff pending) and own {0..3}
+    between them, disjointly.  (c) ``resize-shards -n 2`` runs, and as
+    soon as a replica reports ``draining`` or ``adopting`` the holder
+    of shard 0 gets SIGKILL; the survivor must steal its leases and
+    finish alone: stable at ``2x64``, epoch 2, owning {0, 1}.  (d) The
+    survivor must exit 0 on SIGTERM.
+
+    Hard bounds (``PhaseError``): the state file, read every
+    ``RESIZE_POLL`` s through the run, never shows an owner tag twice
+    or more accelerators than Services created; ``(n, n, n)`` chains
+    after (b) and after (c); over (a) and (b) the fleet's
+    ``create_accelerator`` calls equal ``n``; summed AIMD ceilings (at
+    every read of the replicas) and the aggregate call rate within
+    ``SHARD_BUDGET_QPS`` per service; every Service's owner answering
+    ``converged`` (no journey in flight) after (b) and after (c), and
+    ``trigger=resize`` journeys closed after (b).  Returns the run's
+    times and telemetry."""
+    env = shard_env(n, latency, workdir)
+    state_path = env["AGAC_FAKE_STATE"]
+    first, resize_at = round(n * RESIZE_FIRST), round(n * RESIZE_AT)
+    placement = ["--shards-per-replica", str(RESIZE_CAPACITY)]
+    server = pkg.testserver.TestApiServer().start()
+    children: list[Child] = []
+    ceilings_seen: dict[str, float] = {}
+    live = [0, 1]
+    try:
+        kubeconfig = write_kubeconfig(workdir, server.url)
+        ports = [_free_port() for _ in live]
+        spawned = time.monotonic()
+        for replica, port in enumerate(ports):
+            children.append(Child(
+                f"controller-{replica}",
+                shard_controller_argv(package, kubeconfig, port, RESIZE_FROM, placement),
+                env, workdir,
+            ))
+
+        def views() -> list[dict] | None:
+            """The live replicas' ``/healthz`` sharding blocks; the
+            summed AIMD ceilings are held to the budget at every read."""
+            try:
+                blocks = [_get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"] for r in live]
+                sums: dict[str, float] = {}
+                for r in live:
+                    ready = _get_json(f"http://127.0.0.1:{ports[r]}/readyz").get("services", {})
+                    for service, snap in ready.items():
+                        if "aimd_ceiling" in snap:
+                            family = service.split("[", 1)[0]
+                            sums[family] = sums.get(family, 0.0) + snap["aimd_ceiling"]
+            except OSError:
+                return None
+            for family, total in sums.items():
+                ceilings_seen[family] = max(ceilings_seen.get(family, 0.0), total)
+            if any(total > SHARD_BUDGET_QPS * 1.001 for total in sums.values()):
+                raise PhaseError(
+                    f"resize: summed AIMD ceilings {sums} exceed {SHARD_BUDGET_QPS}/s "
+                    f"(sharding {blocks})"
+                )
+            return blocks
+
+        def stable(count: int, epoch: int) -> list[dict] | None:
+            blocks = views()
+            if blocks is None:
+                return None
+            want = ("stable", f"{count}x64", 0, epoch)
+            for block in blocks:
+                resize = block["resize"]
+                if (resize["state"], resize["ring"], resize["handoff_pending"], resize["epoch"]) != want:
+                    return None
+            owned = [set(block["owned"]) for block in blocks]
+            if set().union(*owned) != set(range(count)):
+                return None
+            if sum(map(len, owned)) != count:
+                raise PhaseError(f"resize: replicas hold overlapping sets {owned}")
+            return blocks
+
+        def held() -> list[dict] | None:
+            blocks = views()
+            if blocks is None or set().union(*(b["owned"] for b in blocks)) != {0, 1}:
+                return None
+            return blocks
+
+        start_views = _wait_for("shard leases {0, 1} held", held, children, spawned)
+        lease_s = time.monotonic() - spawned
+        client = pkg.rest.RestClusterClient(server.url)
+        aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
+        pids = {r: child.popen.pid for r, child in enumerate(children)}
+        cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
+        own = os.times()
+
+        def running() -> list[Child]:
+            return [children[r] for r in live]
+
+        def complete() -> bool:
+            chains = aws.chain_counts()
+            if max(chains) > n:
+                raise PhaseError(f"resize: chain counts {chains} exceed {n}: duplicates")
+            return chains == (n, n, n)
+
+        keys = [f"default/{make_shard_service(pkg, i).metadata.name}" for i in range(n)]
+        pending: set[str] = set()
+
+        def settled():
+            """Every Service's owner answers ``converged`` on
+            ``/debug/explain``: it holds no journey in flight for the
+            key (a donor may still hold the journey of a key it stopped
+            serving at its drain; the owner's answer is the one that
+            counts).  Returns the live replicas' scrapes and journeys."""
+            for key in sorted(pending):
+                verdicts = [
+                    json.loads(_http(f"http://127.0.0.1:{ports[r]}/debug/explain?key={key}"))["verdict"]
+                    for r in live
+                ]
+                if "converged" in verdicts:
+                    pending.discard(key)
+            if pending:
+                return None
+            scrapes = [scrape_replica(ports[r]) for r in live]
+            return scrapes, journey_counts(pkg, [s["metrics"] for s in scrapes])
+
+        with DuplicateWatch(package, state_path, workdir) as watch:
+            def create(i: int) -> None:
+                watch.sending()
+                client.create("Service", make_shard_service(pkg, i))
+
+            def create_all(indices) -> None:
+                with concurrent.futures.ThreadPoolExecutor(max_workers=RESIZE_BATCH) as pool:
+                    list(pool.map(create, indices))
+
+            # (a) grow under load
+            start = time.monotonic()
+            creator = threading.Thread(target=create_all, args=(range(first),), name="creator")
+            creator.start()
+
+            def chains_at_least(count: int):
+                chains = aws.chain_counts()
+                return chains if chains[2] >= count else None
+
+            chains_at_grow = _wait_for(
+                f"{resize_at} complete chains", lambda: chains_at_least(resize_at), running(), start
+            )
+            creator.join()
+            calls_before = sum(sum(scrape_replica(ports[r])["calls"].values()) for r in live)
+            grow_local, grow_at = _local_seconds(), time.monotonic()
+            grow_out = resize_cli(package, kubeconfig, RESIZE_TO, 1, env)
+            create_all(range(first, n))
+            after_creates = views() or []
+            # (b) the new ring, stable everywhere, and every chain complete
+            grown = _wait_for(
+                f"ring {RESIZE_TO}x64 stable", lambda: stable(RESIZE_TO, 1), running(), grow_at
+            )
+            grow_s = time.monotonic() - grow_at
+            _wait_for(f"{n} complete chains", complete, running(), grow_at)
+            converged_s = time.monotonic() - start
+            pending.update(keys)
+            grow_scrapes, grow_journeys = _wait_for(
+                "every Service converged on its owner after the grow", settled, running(), grow_at
+            )
+            grow_elapsed = time.monotonic() - start
+            grow_calls: dict[str, float] = {}
+            creates = 0.0
+            for scrape in grow_scrapes:
+                creates += scrape["ops"].get("create_accelerator", 0.0)
+                for family, count in scrape["calls"].items():
+                    grow_calls[family] = grow_calls.get(family, 0.0) + count
+            if creates != n:
+                raise PhaseError(f"resize: {creates} create_accelerator calls for {n} Services")
+            if grow_journeys["resize"] == 0:
+                raise PhaseError(f"resize: no trigger=resize journey after the grow: {grow_journeys}")
+            if aws.chain_counts() != (n, n, n):
+                raise PhaseError(f"resize: chain counts {aws.chain_counts()} after the grow")
+            grow_rates = {f: c / grow_elapsed for f, c in sorted(grow_calls.items())}
+
+            # (c) shrink, and kill the holder of shard 0 mid-transition
+            shrink_local, shrink_at = _local_seconds(), time.monotonic()
+            resize_cli(package, kubeconfig, RESIZE_FROM, 2, env)
+
+            def mid_transition() -> list[dict] | None:
+                blocks = views()
+                if blocks is None:
+                    return None
+                states = [b["resize"]["state"] for b in blocks]
+                if any(s in RESIZE_STATES for s in states):
+                    return blocks
+                if all(b["resize"]["epoch"] == 2 for b in blocks):
+                    raise PhaseError(f"resize: the shrink completed before the kill: {blocks}")
+                return None
+
+            while (seen := mid_transition()) is None:
+                for child in running():
+                    child.check_alive()
+                if time.monotonic() - shrink_at > PROCESS_DEADLINE:
+                    raise PhaseError("resize: no replica entered the shrink")
+                time.sleep(0.02)
+            (victim,) = [r for r, b in zip(live, seen) if 0 in b["owned"]]
+            victim_scrape = scrape_replica(ports[victim])
+            cpu[victim] += cpu_seconds(pids[victim])
+            children[victim].popen.send_signal(signal.SIGKILL)
+            children[victim].popen.wait(timeout=EXIT_DEADLINE)
+            killed_at = time.monotonic()
+            kill = {
+                "victim": victim,
+                "states": [b["resize"]["state"] for b in seen],
+                "owned": sorted(seen[live.index(victim)]["owned"]),
+                "at_s": killed_at - shrink_at,
+            }
+            live.remove(victim)
+            (survivor,) = live
+
+            def took_over() -> bool:
+                blocks = views()
+                if blocks is None:
+                    return False
+                identity, holders = blocks[0]["identity"], blocks[0]["holders"]
+                return stable(RESIZE_FROM, 2) is not None or all(
+                    holders.get(str(s)) == identity for s in kill["owned"]
+                )
+
+            _wait_for("the survivor's steal", took_over, running(), killed_at)
+            kill["takeover_s"] = time.monotonic() - killed_at
+            shrunk = _wait_for(
+                f"the survivor stable at {RESIZE_FROM}x64", lambda: stable(RESIZE_FROM, 2),
+                running(), killed_at,
+            )
+            kill["stable_after_kill_s"] = time.monotonic() - killed_at
+            shrink_s = time.monotonic() - shrink_at
+            if sorted(shrunk[0]["owned"]) != [0, 1]:
+                raise PhaseError(f"resize: the survivor owns {shrunk[0]['owned']}")
+            _wait_for(f"{n} complete chains after the kill", complete, running(), killed_at)
+            pending.update(keys)
+            survivor_scrapes, survivor_journeys = _wait_for(
+                "every Service converged on the survivor", settled, running(), killed_at
+            )
+            elapsed = time.monotonic() - start
+            time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
+        watch.check()
+        if aws.chain_counts() != (n, n, n):
+            raise PhaseError(f"resize: chain counts {aws.chain_counts()} after the kill")
+        calls = dict(victim_scrape["calls"])
+        for family, count in survivor_scrapes[0]["calls"].items():
+            calls[family] = calls.get(family, 0.0) + count
+        rates = {f: c / elapsed for f, c in sorted(calls.items())}
+        if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*grow_rates.values(), *rates.values()]):
+            raise PhaseError(f"resize: call rates {grow_rates}, {rates} exceed {SHARD_BUDGET_QPS}/s")
+        cpu[survivor] += cpu_seconds(pids[survivor])
+        own_cpu = sum(os.times()[:2]) - sum(own[:2])
+        exit_status = children[survivor].terminate()
+    finally:
+        for child in children:
+            child.kill()
+        server.stop()
+    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
+    if exit_status != 0 or tracebacks:
+        raise PhaseError(f"resize: the survivor exited {exit_status}, tracebacks from {tracebacks}")
+    moved_grow = moved_keys(pkg, n, RESIZE_FROM, RESIZE_TO)
+    return {
+        "services": n,
+        "latency_s": latency,
+        "lease_s": lease_s,
+        "start_owned": [sorted(b["owned"]) for b in start_views],
+        "chains_at_grow": list(chains_at_grow),
+        "grow_stdout": grow_out.strip().splitlines()[-1],
+        "states_after_mid_creates": [b["resize"]["state"] for b in after_creates],
+        "grow_s": grow_s,
+        "grown_owned": [sorted(b["owned"]) for b in grown],
+        "converged_s": converged_s,
+        "create_accelerator": int(creates),
+        "grow_journeys": grow_journeys,
+        "grow_call_rates": grow_rates,
+        "moved_keys_grow": {"ring": moved_grow, "resize_journeys": grow_journeys["resize"]},
+        "grow_calls_per_moved_key": (sum(grow_calls.values()) - calls_before) / moved_grow,
+        "kill": kill,
+        "shrink_s": shrink_s,
+        "moved_keys_shrink": {
+            "ring": moved_keys(pkg, n, RESIZE_TO, RESIZE_FROM),
+            "survivor_resize_journeys": survivor_journeys["resize"],
+        },
+        "survivor_journeys": survivor_journeys,
+        "call_rates": rates,
+        "aimd_ceiling_sums_max": dict(sorted(ceilings_seen.items())),
+        "handoff_windows": handoff_windows(
+            [c.stderr() for c in children], {1: grow_local, 2: shrink_local}
+        ),
+        "watch": {"polls": watch.polls, "max_gap_s": watch.max_gap_s},
+        "elapsed_s": elapsed,
+        "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
+        "apiserver_cores_busy": own_cpu / elapsed,
+        "exit": exit_status,
+        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
     }
 
 
@@ -1430,6 +1966,44 @@ def phase_shard(n: int, card: str) -> dict:
     )
     print("shard " + json.dumps(result), flush=True)
     return result
+
+
+def phase_resize(n: int, card: str) -> dict:
+    """The runbook's live resize through the port's command line;
+    ``resize_fleet`` holds it to its hard bounds."""
+    pkg = load(PORT)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-resize-") as workdir:
+        start = time.monotonic()
+        run = resize_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
+    run["wall_s"] = time.monotonic() - start
+    kill, grow = run["kill"], run["grow_journeys"]
+    print(
+        f"resize: 2 x python -m {PORT} controller --shard-count {RESIZE_FROM} "
+        f"--shards-per-replica {RESIZE_CAPACITY} ({SHARD_WORKERS} workers, {SHARD_LATENCY} s fake "
+        f"AWS latency), {n} Services; grow {RESIZE_FROM} -> {RESIZE_TO} requested at chains "
+        f"{run['chains_at_grow']} ({run['grow_stdout']!r}), every replica stable at "
+        f"{RESIZE_TO}x64 {run['grow_s']} s later (owned {run['grown_owned']}), {n} chains "
+        f"{run['converged_s']} s after the first create; create_accelerator calls "
+        f"{run['create_accelerator']} for {n} Services; moved keys {run['moved_keys_grow']} "
+        f"(ring vs trigger=resize journeys), GA resize journeys p50/p99 "
+        f"{grow['ga_resize']['p50_s']}/{grow['ga_resize']['p99_s']} s, spec p50/p99 "
+        f"{grow['ga']['p50_s']}/{grow['ga']['p99_s']} s, {run['grow_calls_per_moved_key']} AWS "
+        f"calls per moved key between the request and every chain closed (the last quarter's "
+        f"creates included); shrink {RESIZE_TO} -> {RESIZE_FROM}: SIGKILL to replica "
+        f"{kill['victim']} (shards {kill['owned']}, states {kill['states']}) {kill['at_s']} s "
+        f"after the request, the survivor held its leases {kill['takeover_s']} s later and was "
+        f"stable at {RESIZE_FROM}x64 {kill['stable_after_kill_s']} s after the kill "
+        f"({run['shrink_s']} s after the request; moved keys {run['moved_keys_shrink']}); "
+        f"handoff windows {run['handoff_windows']}; call rates {run['call_rates']} /s, AIMD "
+        f"ceiling sums at most {run['aimd_ceiling_sums_max']} /s (budget {SHARD_BUDGET_QPS}); "
+        f"duplicate watch {run['watch']['polls']} reads, at most {run['watch']['max_gap_s']} s "
+        f"apart, no duplicate; {run['host_cores_busy']} of {os.cpu_count()} host cores busy "
+        f"({run['apiserver_cores_busy']} in this process, the apiserver's); phase "
+        f"{run['wall_s']} s (host-bound, the card is idle in this phase) on {card}",
+        flush=True,
+    )
+    print("resize " + json.dumps(run), flush=True)
+    return run
 
 
 def sim_replay(pkg, card: str) -> list[dict]:
@@ -1884,6 +2458,7 @@ def main(argv=None) -> int:
         phase_converge(args.services, card)
         phase_process(PROCESS_SERVICES, card)
         phase_shard(SHARD_SERVICES, card)
+        phase_resize(SHARD_SERVICES, card)
         phase_sim(args.sim_services, card)
         phase_analysis(args.services, card)
         phase_graft(torch, args.seed, card)

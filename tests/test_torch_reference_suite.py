@@ -75,10 +75,9 @@ DESELECT = {
         "TestRuntimeCrosscheck::test_api_stage_names_normalize_to_family",
     ],
     "test_process_e2e.py": [
-        # two wall-clock drills that fail now and then on the reference
+        # a wall-clock drill that fails now and then on the reference
         # itself (see ROADMAP.md); a flaky case would cost passes at random
         "TestKillRecoveryDrills::test_kill_mid_teardown_sweeper_mops_up",
-        "TestElasticResizeProcessDrill::test_live_resize_2_to_4_then_kill_mid_shrink",
     ],
 }
 
