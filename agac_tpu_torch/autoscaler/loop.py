@@ -7,7 +7,9 @@ acted or suppressed, with its full evidence), keep it in the bounded
 decision history the ``/debug/autoscaler`` endpoint serves, and — only
 when the policy says ``executed`` — call the injected resize executor
 (production: ``Manager.request_resize`` through the ring-lease CAS
-path; sim: the harness's traced ``request_resize``).
+path; sim: the harness's traced ``request_resize``) and hand the epoch
+it returns back to the policy, which tells its own resizes from the
+fleet's by it.
 
 The driver is environment-shaped, the loop is not: ``cmd/root`` runs
 ``run()`` on a daemon thread beside the SLO engine's, the sim harness
@@ -69,7 +71,7 @@ class AutoscalerLoop:
         decision = self.policy.evaluate(snapshot)
         if decision.executed:
             try:
-                self._execute_target(decision.target_shards)
+                self.policy.note_executed(self._execute_target(decision.target_shards))
             except Exception as err:
                 decision.executed = False
                 decision.rails = decision.rails + (RAIL_EXECUTE_ERROR,)
@@ -93,10 +95,10 @@ class AutoscalerLoop:
         self._recorder.record(RECORD_KIND, **decision.to_dict())
         return decision
 
-    def _execute_target(self, target: int) -> None:
+    def _execute_target(self, target: int):
         if self._execute is None:
             raise RuntimeError("autoscaler has no resize executor wired")
-        self._execute(target)
+        return self._execute(target)
 
     # ------------------------------------------------------------------
     # views

@@ -30,6 +30,14 @@ membership plane and any in-flight transition), min/max clamping of
 the ±1-doubling step, and observe-only.  A suppressed decision is
 still a decision: the caller flight-records it with the full
 evidence snapshot either way.
+
+Every replica of a fleet runs its own loop over its own signals, and
+any of them may execute a resize.  The last executed resize is the
+FLEET's: a ring epoch this loop sees advance without having requested
+it (another replica's decision, an operator's ``resize-shards``)
+starts both cooldowns and resets the streaks as this loop's own
+executed step does.  The loop reports the epochs it requested through
+``note_executed``.
 """
 
 from __future__ import annotations
@@ -88,8 +96,8 @@ class ScalePolicyConfig:
     # consecutive evaluations (a longer window than scale-out needs)
     headroom_evals: int = 8
     headroom_burn: float = 0.25
-    # per-direction cooldowns, measured from the last EXECUTED resize
-    # in either direction
+    # per-direction cooldowns, measured from the fleet's last EXECUTED
+    # resize in either direction
     cooldown_out_seconds: float = 120.0
     cooldown_in_seconds: float = 600.0
     # how long after a service's circuit RE-CLOSES its objectives stay
@@ -153,6 +161,9 @@ class ScalePolicy:
     def __init__(self, config: Optional[ScalePolicyConfig] = None):
         self.config = config if config is not None else ScalePolicyConfig()
         self._last_resize_time: Optional[float] = None
+        # the highest ring epoch seen or requested by this loop (None
+        # until a snapshot carries one)
+        self._ring_epoch: Optional[int] = None
         self._prev_oldest_age: Optional[float] = None
         self._age_growth_streak = 0
         self._headroom_streak = 0
@@ -220,12 +231,34 @@ class ScalePolicy:
         )
         self._headroom_streak = self._headroom_streak + 1 if cool else 0
 
+    def _observe_epoch(self, snapshot: SignalSnapshot) -> None:
+        """A ring epoch past every one this loop has seen or requested
+        is a resize someone else executed: it starts the cooldowns and
+        resets the streaks, as this loop's own executed step does.  The
+        first epoch seen is the baseline; a lower one (a replica that
+        has not read the ring lease yet) is ignored."""
+        epoch = snapshot.epoch
+        if epoch is None:
+            return
+        if self._ring_epoch is not None and epoch > self._ring_epoch:
+            self._last_resize_time = snapshot.time
+            self._age_growth_streak = 0
+            self._headroom_streak = 0
+        self._ring_epoch = max(epoch, self._ring_epoch or 0)
+
+    def note_executed(self, epoch) -> None:
+        """The ring epoch this loop's executed resize produced (the
+        executor's return; anything but an int is ignored)."""
+        if isinstance(epoch, int):
+            self._ring_epoch = max(epoch, self._ring_epoch or 0)
+
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
     def evaluate(self, snapshot: SignalSnapshot) -> Decision:
         cfg = self.config
         now = snapshot.time
+        self._observe_epoch(snapshot)
         current = max(1, snapshot.shard_count)
         effective_open = self._effective_open(snapshot)
         tripped, excluded = self._burn_evidence(snapshot, effective_open)

@@ -11,8 +11,8 @@ The sources (and their accessors):
 - the journey tracker — live backlog (``inflight()``) and the
   single-wedged-object signal
   (``JourneyTracker.oldest_unconverged_age()``);
-- the ring-lease plane — shard count / resize transition state
-  (``resize_status()``-shaped callable) and the per-shard keys-owned
+- the ring-lease plane — shard count / resize transition state and
+  epoch (``resize_status()``-shaped callable) and the per-shard keys-owned
   census (the load board's input);
 - the API health plane — services whose circuit is currently open
   (``HealthTracker.open_services()``-shaped callable), feeding the
@@ -66,6 +66,9 @@ class SignalSnapshot:
     keys_by_shard: dict = field(default_factory=dict)
     replica_count: int = 0
     open_circuits: frozenset = frozenset()
+    # the ring lease's resize epoch as this replica last read it (None
+    # when the source does not carry one)
+    epoch: Optional[int] = None
 
     def to_dict(self) -> dict:
         return {
@@ -139,6 +142,7 @@ class ScaleSignals:
                 inflight = self._journey.inflight()
             except Exception:
                 oldest_age, inflight = 0.0, 0
+        epoch = status.get("epoch")
         return SignalSnapshot(
             time=self._clock(),
             shard_count=int(status.get("shard_count") or 1),
@@ -151,4 +155,5 @@ class ScaleSignals:
             keys_by_shard=dict(self._safe(self._keys_by_shard, {})),
             replica_count=int(self._safe(self._replica_count, 0)),
             open_circuits=frozenset(self._safe(self._open_circuits, ())),
+            epoch=int(epoch) if epoch is not None else None,
         )

@@ -586,6 +586,10 @@ def run_controller(args) -> int:
     # moment the keys are served
     manager.on_reshard = invalidate_read_plane
     manager.on_adopt = invalidate_read_plane
+    # this process's journey tracker holds its own journeys only: keys
+    # it stops serving close here without a latency, and the new owner
+    # observes their convergence in its own process
+    manager.on_release = manager.release_journeys
 
     import threading
 

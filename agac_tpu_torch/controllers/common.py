@@ -143,7 +143,9 @@ def with_shard_guard(shard_filter, process):
     owner's reconcile of the same key (the double-mutation the
     drain/handoff protocol exists to prevent), so the worker skips it:
     ``Result(skip=True)`` forgets the item without closing its journey
-    and without any AWS call having run.  ``OWNS_ALL`` short-circuits,
+    and without any AWS call having run; the filter's ``on_skip`` hears
+    of the key first (a process whose journeys are its own closes the
+    key's there).  ``OWNS_ALL`` short-circuits,
     so single-shard mode pays nothing.
 
     The check alone cannot stop a reconcile already past it: the
@@ -162,6 +164,8 @@ def with_shard_guard(shard_filter, process):
             owned = shard_filter.owns_key(key)
         try:
             if not owned:
+                if shard_filter.on_skip is not None:
+                    shard_filter.on_skip(key)
                 return Result(skip=True, reason="not-owner")
             return process(arg)
         finally:

@@ -175,6 +175,15 @@ class Manager:
         # snapshots either.  Wired by cmd/root (factory caches and the
         # durable fake account); the sim leaves it unset.
         self.on_adopt: Optional[Callable[[], None]] = None
+        # fired by the membership when this replica hands keys it
+        # served to others: with None just after (a drain ack, a lost
+        # lease, a shed lease's release, a shard the ring dropped,
+        # shutdown), with the key when a worker pops one it no longer
+        # serves.  Wired
+        # by cmd/root, whose process keeps its own journeys
+        # (``release_journeys``); the sim's fleet-wide journeys leave
+        # it unset.
+        self.on_release: Optional[Callable[[Optional[str]], None]] = None
         # the orphan GC sweeper, built by run() when its
         # interval is > 0; None = disabled (reference parity)
         self.gc: Optional[GarbageCollector] = None
@@ -218,6 +227,7 @@ class Manager:
             # handoff resync an ownership change triggers
             self.shard_membership.on_quota_change = self._on_shard_quota_change
             self.shard_membership.on_adopt = self._on_shard_adopt
+            self.shard_membership.on_release = self._on_shard_release
             # load-aware placement input: measured managed
             # keys per shard under the live ring
             self.shard_membership.fleet_key_counts = self._count_keys_by_shard
@@ -380,6 +390,27 @@ class Manager:
     def _on_shard_adopt(self) -> None:
         if self.on_adopt is not None:
             self.on_adopt()
+
+    def _on_shard_release(self, key: Optional[str] = None) -> None:
+        if self.on_release is not None:
+            self.on_release(key)
+
+    def release_journeys(self, key: Optional[str] = None) -> int:
+        """Close, without observing a latency, the process tracker's
+        in-flight journeys of keys this replica no longer serves (only
+        ``key``'s when given); returns how many.  Right only where the
+        tracker holds this replica's journeys alone: the new owner
+        observes the convergence in its own process."""
+        owns = self.shard_filter.owns_key
+        released = obs_journey.tracker().release(
+            lambda k: (key is None or k == key) and not owns(k)
+        )
+        if released and key is None:
+            klog.v(2).infof(
+                "released %d journeys of keys now served elsewhere (shards %s)",
+                released, self.shard_filter.token(),
+            )
+        return released
 
     def _on_shard_quota_change(self, membership: ShardMembership) -> None:
         """A resize transition began: the quota denominator moved but

@@ -243,6 +243,22 @@ class JourneyTracker:
             controller=controller, stage=STAGE_DROPPED
         ).inc()
 
+    def release(self, selects: Callable[[str], bool]) -> int:
+        """Close, WITHOUT observing a latency, every in-flight journey
+        whose key ``selects`` picks; returns how many.  A process
+        calls it for keys it stopped serving: their convergence is
+        the new owner's to observe, in its own tracker, and a copy
+        left open here would age forever."""
+        released = [
+            (controller, key)
+            for controller, key in self.inflight_keys()
+            if selects(key)
+        ]
+        with self._lock:
+            for entry in released:
+                self._inflight.pop(entry, None)
+        return len(released)
+
     def _close(self, controller: str, key: str, stage: str) -> Optional[float]:
         now = self._clock()
         with self._lock:

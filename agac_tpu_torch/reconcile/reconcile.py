@@ -246,8 +246,10 @@ def _reconcile_handler(
     elif res.skip:
         # shard-guard skip: the key re-homed to another
         # replica after it was enqueued here — drop the residue item
-        # without touching its journey (the new owner's resync opened
-        # or will close it) and without any AWS work having run
+        # without touching its journey and without any AWS work having
+        # run.  Where journeys are fleet-wide (the sim) the new owner's
+        # resync opened or will close it; a process whose journeys are
+        # its own closed its copy from the membership's release hook
         result = instruments.RESULT_SKIPPED
         reason = res.reason
         queue.forget(key)

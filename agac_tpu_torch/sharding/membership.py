@@ -220,11 +220,15 @@ class ShardFilter:
         owned: Callable[[], frozenset[int]],
         ring_provider: Optional[Callable[[], HashRing]] = None,
         transition: Optional[Callable[[], Optional[_TransitionView]]] = None,
+        on_skip: Optional[Callable[[str], None]] = None,
     ):
         self._ring = ring
         self._owned = owned
         self._ring_provider = ring_provider
         self._transition = transition
+        # called by ``with_shard_guard`` with each key a worker popped
+        # but no longer serves
+        self.on_skip = on_skip
         # ring.version -> {key: shard}; tiny dict of dicts so a
         # transition's two rings memoize independently
         self._memos: dict[str, dict[str, int]] = {}
@@ -548,6 +552,14 @@ class ShardMembership:
         # process drops its read snapshots there, so no reconcile of
         # those keys reads AWS as it stood before the handover
         self.on_adopt: Optional[Callable[[], None]] = None
+        # fired just after this replica hands keys it served to others
+        # (a drain ack, a lost lease, a shed lease's release, a shard
+        # the ring dropped, shutdown) with None, and with the key when
+        # a worker pops a key it no longer serves: a process closes its
+        # own record of those keys' in-flight work there, as the new
+        # owner keeps its own.  Left unset where one record spans every
+        # replica (the sim's fleet-wide journeys)
+        self.on_release: Optional[Callable[[Optional[str]], None]] = None
 
         metrics = instruments.sharding_instruments(registry)
         self._metrics = metrics
@@ -571,6 +583,7 @@ class ShardMembership:
             self.owned_shards,
             ring_provider=lambda: self.ring,
             transition=self.transition_view,
+            on_skip=self._released,
         )
 
     def _ensure_elector(self, shard: int, identity: Optional[str] = None):
@@ -614,11 +627,22 @@ class ShardMembership:
         divided evenly per shard, and budget follows ownership.
         During a transition the denominator is the larger numbering
         space, so the fleet sum stays under the global budget while
-        both rings have live leases."""
+        both rings have live leases.  A drained shard the next ring
+        drops serves no key here any more and counts for nothing: its
+        adopters may complete the transition, and take their slice of
+        the smaller ring, before this replica does."""
         total = self.shard_count
+        serving = self._owned
         if self.next_ring is not None:
             total = max(total, self.next_ring.shard_count)
-        return len(self._owned) / total
+            serving = serving - self._dropped_drained()
+        return len(serving) / total
+
+    def _dropped_drained(self) -> frozenset[int]:
+        next_ring = self.next_ring
+        if next_ring is None:
+            return frozenset()
+        return frozenset(s for s in self._drained_local if s >= next_ring.shard_count)
 
     def shard_map(self) -> dict:
         with self._lock:
@@ -702,6 +726,7 @@ class ShardMembership:
         if probe_due:
             changed = self._sync_ring_lease(client)
         owned = set(self._owned)
+        held = len(owned)
         # renew what we hold; a failed CAS means someone stole an
         # expired lease out from under a paused/partitioned replica —
         # drop the shard before anything else consults the filter
@@ -719,6 +744,8 @@ class ShardMembership:
                     "shard %d lease lost to %s (identity %s)",
                     shard, holder or "<unheld>", self.identity,
                 )
+        if len(owned) < held:
+            self._released()
         self._flush_releases(client)
         if probe_due:
             changed |= self._maybe_shed(client, owned)
@@ -883,17 +910,24 @@ class ShardMembership:
 
     def _flush_releases(self, client) -> None:
         """Release every lease dropped locally whose keys no worker
-        here is reconciling any more."""
+        here is reconciling any more.  The keys leave this process at
+        the release (until then no other replica can take them, and a
+        claim back keeps them here)."""
         for shard in sorted(self._release_pending):
             if shard in self._owned:
                 self._release_pending.discard(shard)  # claimed back
             elif not self.filter.inflight(self.ring, shard):
                 self._release_pending.discard(shard)
                 self._electors[shard].release(client)
+                self._released()
 
     def _adopting(self) -> None:
         if self.on_adopt is not None:
             self.on_adopt()
+
+    def _released(self, key: Optional[str] = None) -> None:
+        if self.on_release is not None:
+            self.on_release(key)
 
     def _key_counts(self) -> dict[int, int]:
         if self.fleet_key_counts is None:
@@ -1147,6 +1181,7 @@ class ShardMembership:
             return
         epoch = self.resize_epoch
         markers: dict[str, str] = {}
+        drained_now: set[int] = set()
         # DONOR drain: stop serving moving keys once every gainer that
         # receives them is standing by (lease claimed), then ack the
         # drain once no worker here is still reconciling one of them:
@@ -1169,6 +1204,7 @@ class ShardMembership:
             # one set or the other throughout
             self._drained_local.add(shard)
             self._draining_local.discard(shard)
+            drained_now.add(shard)
             markers[f"{ANN_DRAINED}{shard}"] = str(epoch)
             klog.infof(
                 "resize epoch %d: shard %d drained (gainers %s standing by)",
@@ -1195,6 +1231,11 @@ class ShardMembership:
                 )
         if markers:
             self._write_markers(client, markers)
+            self._released()
+            if self._dropped_drained() & drained_now:
+                # a dropped shard's slice is free: re-divide now
+                if self.on_quota_change is not None:
+                    self.on_quota_change(self)
         self._flush_acks(client)
         # completion needs the MARKERS, not just local state: an
         # adopter that has not acked may still be mid-resync
@@ -1285,6 +1326,7 @@ class ShardMembership:
                 elector.set_leading(False)
                 elector.release(client)
                 self._observe(shard, None)
+            self._released()
         with self._lock:
             self.map_version += 1
         self.resizes_completed += 1
@@ -1333,6 +1375,8 @@ class ShardMembership:
             elector.set_leading(False)
             elector.release(client)
         self._release_pending.clear()
+        if owned:
+            self._released()
         # clean shutdown removes this replica's load-board entry so
         # peers stop scoring placement against a gone replica
         try:

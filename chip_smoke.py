@@ -63,7 +63,24 @@ Phases, in order; any failure exits non-zero before the last line:
    ``converged`` for every Service.  Transition times, handoff
    windows, moved keys and the resize journeys' percentiles print
    beside the bounds.  Host code: the card is idle in this phase.
-6. ``sim``: the port's virtual-time runtime, which runs the whole
+6. ``autoscale``: the SLO autoscaler closing its loop over processes,
+   the reference's autoscaler canary as the command line runs it.  Four
+   ``python -m agac_tpu_torch controller --autoscale --shard-count 2
+   --shards-per-replica 1`` replicas with admission at 1 qps / burst
+   10 converge 40 Services, then take a wave of 300 with no operator
+   action; an observe-only twin takes the same wave beside them.  The
+   acting fleet must scale out to 4 shards by its own decision within
+   180 s of the wave, reach the new ring stable everywhere, and flip
+   direction at most once (a scale-in no sooner than cooldown-in after
+   the scale-out, and nothing after it); the twin's ring must stay put
+   while a replica records the scale-out it held.  Both must create
+   each accelerator once, stay within the 400/s per-service budget at
+   every read, answer ``converged`` for every Service and leave no
+   journey in flight on any replica once the wave is done.  Reaction,
+   drain times with and without the scale-out, decisions per replica
+   and the journeys' percentiles print beside the bounds.  Host code:
+   the card is idle in this phase.
+7. ``sim``: the port's virtual-time runtime, which runs the whole
    Manager on one thread and folds every dispatch into a SHA-256
    event-trace hash.  ``replay`` replays every checked-in incident
    capture (``tests/captures/*.jsonl``) and requires a byte-identical
@@ -83,7 +100,7 @@ Phases, in order; any failure exits non-zero before the last line:
    of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
    hash.  The pins are what the reference package computes for the
    same runs.  Host code: the card is idle in this phase.
-7. ``analysis``: the port's static analyses over its own tree, then
+8. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
    determinism, confinement) must pass their gate with the port's
@@ -93,7 +110,7 @@ Phases, in order; any failure exits non-zero before the last line:
    watchdog's observed lock edges and stage-tagged writes must fall
    inside the static lock graph and footprint table.  Host code: the
    card is idle in this phase.
-8. ``graft``: the torch twin of the MLP, forward and
+9. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points; then the
    JAX program's multi-chip dry run, one train step over a 4 x 2 data x
@@ -105,7 +122,7 @@ kernel), so the kernel line lists none.  The last line is
 ``{"ok": true, "device": {...}}``.
 
 The fleet helpers, ``converge``, ``process``, ``shard_fleet``,
-``resize_fleet``, ``rollout`` and ``shard_soak`` take the package as a parameter so that
+``resize_fleet``, ``autoscale_fleet``, ``rollout`` and ``shard_soak`` take the package as a parameter so that
 tests can run the same fleet through the reference; this script itself
 only ever loads the port.
 """
@@ -213,6 +230,36 @@ RESIZE_POLL, RESIZE_POLL_BOUND = 0.1, 0.5
 # the states in which the shrink's kill lands
 RESIZE_STATES = ("draining", "adopting")
 
+# the autoscale phase: the reference's autoscaler canary
+# (agac_tpu_torch/sim/fuzz.py's _autoscale_config: four replicas, two shards
+# growing to at most four, per-replica admission as the scarce resource, the
+# policy's rails) as controller processes on the shard phase's fleet and
+# account.  Each replica holds at most one shard (the canary's two would let
+# one process take the whole wave); admission is the chart's 10/100 scaled by
+# a tenth; the interval and cooldown-in are cut so the phase fits a chip call
+AUTOSCALE_REPLICAS = 4
+AUTOSCALE_FROM, AUTOSCALE_TO = 2, 4
+AUTOSCALE_BASE, AUTOSCALE_WAVE = 40, 300
+AUTOSCALE_QUEUE = ("1", "10")
+AUTOSCALE_COOLDOWN_OUT, AUTOSCALE_COOLDOWN_IN = 90.0, 120.0
+AUTOSCALE_INTERVAL = 5.0
+# ring epoch 1 must be requested within this many s of the wave's first create
+AUTOSCALE_REACTION_BOUND = 180.0
+# the run ends this long after epoch 1 when no scale-in came, or this long
+# after the scale-in's ring is stable
+AUTOSCALE_HOLD_S, AUTOSCALE_TAIL_S = 180.0, 30.0
+# every replica's journeys in flight reach 0 within this long of the last
+# chain completing with the ring stable
+AUTOSCALE_SETTLE_S = 15.0
+# seconds between the phase's reads of the replicas, and between its
+# reads of the cores busy (longer: a container host's CPU accounting can
+# be coarse over a second)
+AUTOSCALE_READ, AUTOSCALE_BUSY_READ = 1.0, 5.0
+# the observe-only twin starts this long after the acting run, so the two
+# fleets' start-ups and waves do not land on the host's cores at once (it
+# still ends before the acting run, which waits out cooldown-in)
+AUTOSCALE_TWIN_DELAY = 30.0
+
 # the sim phase
 CAPTURES = REPO / "tests" / "captures"
 SIM_SERVICES = 10_000  # the sim's documented scale
@@ -306,6 +353,7 @@ def load(package: str = PORT) -> types.SimpleNamespace:
         replay=mod("sim.replay"),
         fuzz=mod("sim.fuzz"),
         ring=mod("sharding.ring"),
+        sharding=mod("sharding"),
         slo=mod("observability.slo"),
     )
 
@@ -969,13 +1017,19 @@ def shard_env(n: int, latency: float, workdir: pathlib.Path) -> dict:
 
 
 def shard_controller_argv(
-    package: str, kubeconfig: pathlib.Path, port: int, shard_count: int, placement: list[str]
+    package: str,
+    kubeconfig: pathlib.Path,
+    port: int,
+    shard_count: int,
+    placement: list[str],
+    queue: tuple[str, str] = ("1000", "1000"),
 ) -> list[str]:
-    """One replica of ``bench.py``'s sharded fleet (``bench.py:1414-1427``)."""
+    """One replica of ``bench.py``'s sharded fleet (``bench.py:1414-1427``);
+    ``queue`` is its workqueues' (qps, burst)."""
     return [
         sys.executable, "-m", package, "controller", "--kubeconfig", str(kubeconfig),
         "-c", "bench-shard", "-w", str(SHARD_WORKERS),
-        "--queue-qps", "1000", "--queue-burst", "1000",
+        "--queue-qps", queue[0], "--queue-burst", queue[1],
         "--health-port", str(port), "--shard-count", str(shard_count), *placement,
     ]
 
@@ -1516,7 +1570,14 @@ def resize_fleet(pkg, package: str, n: int, latency: float, workdir: pathlib.Pat
             if creates != n:
                 raise PhaseError(f"resize: {creates} create_accelerator calls for {n} Services")
             if grow_journeys["resize"] == 0:
-                raise PhaseError(f"resize: no trigger=resize journey after the grow: {grow_journeys}")
+                trail = [
+                    f"{c.name}: {line}" for c in children for line in c.stderr().splitlines()
+                    if re.search(r"resize epoch|resync|shed|lease (acquired|lost|stolen)", line)
+                ]
+                raise PhaseError(
+                    f"resize: no trigger=resize journey after the grow: {grow_journeys}; "
+                    f"the replicas' placement log: {trail[-40:]}"
+                )
             if aws.chain_counts() != (n, n, n):
                 raise PhaseError(f"resize: chain counts {aws.chain_counts()} after the grow")
             grow_rates = {f: c / grow_elapsed for f, c in sorted(grow_calls.items())}
@@ -1637,6 +1698,481 @@ def resize_fleet(pkg, package: str, n: int, latency: float, workdir: pathlib.Pat
         "apiserver_cores_busy": own_cpu / elapsed,
         "exit": exit_status,
         "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
+    }
+
+
+# ---------------------------------------------------------------------------
+# the autoscale phase: the SLO autoscaler over a package's controller processes
+# ---------------------------------------------------------------------------
+
+def tree_cpu_seconds() -> float:
+    """CPU seconds of this process and of its live child processes (a
+    card host's ``/proc/stat`` need not move)."""
+    total = sum(os.times()[:2])
+    me = str(os.getpid())
+    for stat in pathlib.Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rpartition(")")[2].split()
+        except OSError:
+            continue  # exited meanwhile
+        if fields[1] == me:
+            total += (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+    return total
+
+
+def metric_samples(text: str, name: str) -> dict[str, float]:
+    """The samples of metric ``name`` in exposition ``text``: labels -> value."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith((name + "{", name + " ")):
+            labels, _, value = line.rpartition(" ")
+            out[labels[len(name):]] = float(value)
+    return out
+
+
+def replica_journeys(metrics: str) -> tuple[int, float]:
+    """One replica's journeys in flight and its oldest one's age, s."""
+    inflight = sum(metric_samples(metrics, "agac_journey_inflight").values())
+    ages = metric_samples(metrics, "agac_journey_oldest_unconverged_age_seconds").values()
+    return int(inflight), max(ages, default=0.0)
+
+
+def autoscale_fleet(
+    pkg,
+    package: str,
+    n_base: int,
+    n_wave: int,
+    latency: float,
+    workdir: pathlib.Path,
+    observe_only: bool,
+) -> dict:
+    """The reference's autoscaler canary as processes: ``AUTOSCALE_REPLICAS``
+    ``python -m <package> controller --autoscale`` replicas at ``--shard-count
+    2 --shards-per-replica 1`` with admission at ``AUTOSCALE_QUEUE`` (qps,
+    burst), one apiserver and the shard phase's flock-arbitrated fake
+    account at ``latency`` s per call.  ``n_base`` Services are created 8 at
+    a time once shards 0 and 1 are held and converge; then a wave of
+    ``n_wave`` more is created by 8 parallel creators, and the run goes on
+    with no operator action.  ``observe_only`` arms every replica with
+    ``--autoscale-observe-only``.
+
+    Hard bounds (``PhaseError``).  Acting run: ring epoch 1 (2 -> 4 shards)
+    appears within ``AUTOSCALE_REACTION_BOUND`` s of the wave's first
+    create, and some replica's ``/debug/autoscaler`` holds the executed
+    scale-out (target 4 from 2, reason ``age-growth`` or ``burn``); every
+    replica then reports ring ``4x64`` stable at epoch 1 with {0..3} owned
+    disjointly; the only other epoch allowed is 2 (4 -> 2), seen no sooner
+    than ``AUTOSCALE_COOLDOWN_IN`` s after epoch 1 and only after every
+    replica reported epoch 1 stable; no epoch 3.  The run ends
+    ``AUTOSCALE_TAIL_S`` s after epoch 2 is stable everywhere, or
+    ``AUTOSCALE_HOLD_S`` s after epoch 1 when no epoch 2 came.
+    Observe-only run: the epoch stays 0, some replica records a
+    scale-out suppressed by ``observe-only``, and a replica's
+    ``agac_autoscaler_target_shards`` reads 4 during the wave.  Both: the
+    state file, read every ``RESIZE_POLL`` s, never shows an owner tag
+    twice or more accelerators than Services sent; ``(n, n, n)`` chains
+    at the end and ``n`` ``create_accelerator`` calls; at every read the
+    summed AIMD ceilings, and the fleet's call rate since the previous
+    read, within ``SHARD_BUDGET_QPS`` per service; every Service
+    ``converged`` on its owner's ``/debug/explain``; within
+    ``AUTOSCALE_SETTLE_S`` s of the last chain completing with the ring
+    stable, every replica's ``agac_journey_inflight`` and oldest
+    unconverged age read 0; every child exits 0 on SIGTERM.
+
+    Times are this process's clock: ring epochs as a watch on the
+    apiserver's Leases delivers them, the rest at the phase's reads
+    (each replica's decision stamps are its own process's clock, and are
+    not compared).  Returns the run's times and telemetry."""
+    n = n_base + n_wave
+    name = "observe-only" if observe_only else "acting"
+    env = shard_env(n, latency, workdir)
+    state_path = env["AGAC_FAKE_STATE"]
+    placement = [
+        "--shards-per-replica", "1", "--autoscale",
+        "--autoscale-min-shards", str(AUTOSCALE_FROM),
+        "--autoscale-max-shards", str(AUTOSCALE_TO),
+        "--autoscale-interval", f"{AUTOSCALE_INTERVAL:g}",
+        "--slo-eval-interval", f"{AUTOSCALE_INTERVAL:g}",
+        "--autoscale-cooldown-out", f"{AUTOSCALE_COOLDOWN_OUT:g}",
+        "--autoscale-cooldown-in", f"{AUTOSCALE_COOLDOWN_IN:g}",
+        *(["--autoscale-observe-only"] if observe_only else []),
+    ]
+    server = pkg.testserver.TestApiServer().start()
+    children: list[Child] = []
+    ceilings_seen: dict[str, float] = {}
+    rates_seen: dict[str, float] = {}
+    epochs: dict[int, float] = {}  # ring epoch -> this process's clock when first seen
+    target_seen = {"max": 0.0}
+    ring_name = pkg.sharding.ring_lease_name()
+    ring_stop = threading.Event()
+
+    def watch_ring() -> None:
+        """Stamp each ring epoch as the apiserver stores it: the phase's
+        reads of the replicas take a while, a watch on the Leases does not."""
+        for event in server.cluster.watch("Lease", "0", ring_stop.is_set):
+            lease = event.obj
+            if lease.metadata.name == ring_name:
+                anns = lease.metadata.annotations or {}
+                epochs.setdefault(int(anns.get(pkg.sharding.membership.ANN_EPOCH, 0) or 0),
+                                  time.monotonic())
+
+    ring_watch = threading.Thread(target=watch_ring, name="ring-watch", daemon=True)
+    ring_watch.start()
+    try:
+        kubeconfig = write_kubeconfig(workdir, server.url)
+        ports = [_free_port() for _ in range(AUTOSCALE_REPLICAS)]
+        spawned = time.monotonic()
+        for replica, port in enumerate(ports):
+            children.append(Child(
+                f"controller-{replica}",
+                shard_controller_argv(
+                    package, kubeconfig, port, AUTOSCALE_FROM, placement, AUTOSCALE_QUEUE
+                ),
+                env, workdir,
+            ))
+        last_calls: list = []  # [time, {family: calls}] at the previous read
+
+        def read() -> list[dict] | None:
+            """One read of the ring lease and every replica; the
+            every-read bounds are held here."""
+            try:
+                epoch = pkg.sharding.ring_status(server.cluster)["epoch"]
+            except RuntimeError:
+                return None  # no replica has created the ring lease yet
+            now = time.monotonic()
+            epochs.setdefault(epoch, now)
+            if (observe_only and epoch != 0) or epoch > 2:
+                raise PhaseError(f"autoscale {name}: ring epoch {epoch} (epochs seen {sorted(epochs)})")
+            try:
+                views = [scrape_replica(port) for port in ports]
+            except OSError:
+                return None
+            ceilings: dict[str, float] = {}
+            calls: dict[str, float] = {}
+            for view in views:
+                # over shard owners, as docs/operations.md ("Quota
+                # division") states the fleet bound: a replica holding
+                # no shard idles at the limiter's 0.5/s floor with no
+                # key to call AWS for
+                for family, ceiling in view["ceilings"].items():
+                    if view["sharding"]["owned"]:
+                        ceilings[family] = ceilings.get(family, 0.0) + ceiling
+                for family, count in view["calls"].items():
+                    calls[family] = calls.get(family, 0.0) + count
+                targets = metric_samples(view["metrics"], "agac_autoscaler_target_shards")
+                target_seen["max"] = max(target_seen["max"], *targets.values(), 0.0)
+            for family, total in ceilings.items():
+                ceilings_seen[family] = max(ceilings_seen.get(family, 0.0), total)
+            if last_calls and now - last_calls[0] >= 1.0:
+                for family, count in calls.items():
+                    rate = (count - last_calls[1].get(family, 0.0)) / (now - last_calls[0])
+                    rates_seen[family] = max(rates_seen.get(family, 0.0), rate)
+                last_calls[:] = [now, calls]
+            elif not last_calls:
+                last_calls[:] = [now, calls]
+            over = {f: v for f, v in [*ceilings.items(), *rates_seen.items()]
+                    if v > SHARD_BUDGET_QPS * 1.001}
+            if over:
+                raise PhaseError(
+                    f"autoscale {name}: AIMD ceiling sums {ceilings} or call rates {rates_seen} "
+                    f"exceed {SHARD_BUDGET_QPS}/s per service"
+                )
+            return views
+
+        def stable(views: list[dict], count: int, epoch: int) -> bool:
+            want = ("stable", f"{count}x64", 0, epoch)
+            for view in views:
+                resize = view["sharding"]["resize"]
+                if (resize["state"], resize["ring"], resize["handoff_pending"], resize["epoch"]) != want:
+                    return False
+            owned = [set(view["sharding"]["owned"]) for view in views]
+            if set().union(*owned) != set(range(count)):
+                return False
+            if sum(map(len, owned)) != count:
+                raise PhaseError(f"autoscale {name}: replicas hold overlapping sets {owned}")
+            return True
+
+        def held() -> bool:
+            views = read()
+            return views is not None and stable(views, AUTOSCALE_FROM, 0)
+
+        _wait_for("shard leases {0, 1} held", held, children, spawned)
+        lease_s = time.monotonic() - spawned
+        client = pkg.rest.RestClusterClient(server.url)
+        aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
+
+        def chains() -> tuple:
+            counts = aws.chain_counts()
+            if max(counts) > n:
+                raise PhaseError(f"autoscale {name}: chain counts {counts} exceed {n}: duplicates")
+            return counts
+
+        def decisions(port: int) -> list[dict]:
+            return _get_json(f"http://127.0.0.1:{port}/debug/autoscaler")["decisions"]
+
+        with DuplicateWatch(package, state_path, workdir) as watch:
+            def create(i: int) -> None:
+                watch.sending()
+                client.create("Service", make_shard_service(pkg, i))
+
+            def create_all(indices) -> None:
+                with concurrent.futures.ThreadPoolExecutor(max_workers=RESIZE_BATCH) as pool:
+                    list(pool.map(create, indices))
+
+            base_at = time.monotonic()
+            create_all(range(n_base))
+            _wait_for(f"{n_base} baseline chains", lambda: chains() == (n_base,) * 3, children, base_at)
+            base_s = time.monotonic() - base_at
+            pids = {r: child.popen.pid for r, child in enumerate(children)}
+            cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
+            own = os.times()
+
+            # the wave, and the run with no operator action
+            wave_at = time.monotonic()
+            creator = threading.Thread(target=create_all, args=(range(n_base, n),), name="creator")
+            creator.start()
+            scale_out = None
+            stable_at: dict[int, float] = {}
+            drained_at = None
+            calm_since = settle_s = None
+            end_at = None
+            while True:
+                for child in children:
+                    child.check_alive()
+                now = time.monotonic()
+                if now - wave_at > PROCESS_DEADLINE:
+                    raise PhaseError(
+                        f"autoscale {name}: no end within {PROCESS_DEADLINE} s of the wave "
+                        f"(epochs {sorted(epochs)}, chains {chains()})"
+                    )
+                views = read()
+                counts = chains()
+                if views is None:
+                    time.sleep(AUTOSCALE_READ)
+                    continue
+                epoch = max(epochs)
+                if drained_at is None and counts == (n, n, n) and not creator.is_alive():
+                    drained_at = now
+                if not observe_only:
+                    if 1 not in epochs and now - wave_at > AUTOSCALE_REACTION_BOUND:
+                        raise PhaseError(
+                            f"autoscale: no scale-out within {AUTOSCALE_REACTION_BOUND} s of the wave"
+                        )
+                    if 1 in epochs and scale_out is None:
+                        for replica, port in enumerate(ports):
+                            for d in decisions(port):
+                                if (d["executed"] and d["action"] == "scale-out"
+                                        and d["target_shards"] == AUTOSCALE_TO
+                                        and d["current_shards"] == AUTOSCALE_FROM):
+                                    scale_out = {"replica": replica, **d}
+                                    break
+                            if scale_out is not None:
+                                break
+                        if scale_out is None and now - epochs[1] > 6 * AUTOSCALE_INTERVAL:
+                            raise PhaseError("autoscale: ring epoch 1 without an executed scale-out")
+                        if scale_out is not None and scale_out["reason"] not in ("age-growth", "burn"):
+                            raise PhaseError(f"autoscale: scale-out for reason {scale_out['reason']}")
+                    if 2 in epochs and not (
+                        1 in stable_at and epochs[2] - epochs[1] >= AUTOSCALE_COOLDOWN_IN
+                        and epochs[2] > stable_at[1]
+                    ):
+                        raise PhaseError(
+                            f"autoscale: epoch 2 {epochs[2] - epochs.get(1, wave_at)} s after "
+                            f"epoch 1 (cooldown-in {AUTOSCALE_COOLDOWN_IN} s), epoch 1 stable "
+                            f"everywhere {'at ' + str(stable_at[1] - epochs[1]) if 1 in stable_at else 'never'}"
+                        )
+                count = AUTOSCALE_TO if epoch == 1 else AUTOSCALE_FROM
+                ring_stable = stable(views, count, epoch)
+                if ring_stable and epoch not in stable_at:
+                    stable_at[epoch] = now
+                # the fault-1 bound: from the first read at which the last
+                # chain is complete and the ring stable, every replica's
+                # journeys in flight reach 0 within AUTOSCALE_SETTLE_S
+                if settle_s is None and drained_at is not None and ring_stable:
+                    calm_since = calm_since or now
+                    journeys = [replica_journeys(v["metrics"]) for v in views]
+                    if all(j == (0, 0.0) for j in journeys):
+                        settle_s = now - calm_since
+                    elif now - calm_since > AUTOSCALE_SETTLE_S:
+                        raise PhaseError(
+                            f"autoscale {name}: journeys in flight (count, oldest age s) per "
+                            f"replica {journeys} {now - calm_since} s after the last chain "
+                            f"completed with the ring stable"
+                        )
+                elif settle_s is None:
+                    calm_since = None
+                if observe_only:
+                    end_at = now
+                elif 2 in stable_at:
+                    end_at = stable_at[2] + AUTOSCALE_TAIL_S
+                elif 2 not in epochs and 1 in epochs:
+                    end_at = epochs[1] + AUTOSCALE_HOLD_S
+                if end_at is not None and now >= end_at and settle_s is not None:
+                    break
+                time.sleep(AUTOSCALE_READ)
+            elapsed = time.monotonic() - wave_at
+            for r, pid in pids.items():
+                cpu[r] += cpu_seconds(pid)
+            own_cpu = sum(os.times()[:2]) - sum(own[:2])
+
+            pending = {f"default/{make_shard_service(pkg, i).metadata.name}" for i in range(n)}
+
+            def converged() -> bool:
+                for key in sorted(pending):
+                    for port in ports:
+                        answer = json.loads(_http(f"http://127.0.0.1:{port}/debug/explain?key={key}"))
+                        if answer["verdict"] == "converged":
+                            pending.discard(key)
+                            break
+                return not pending
+
+            _wait_for("every Service converged on its owner", converged, children, time.monotonic())
+
+            def idle() -> list[dict] | None:
+                # and every replica ends with no journey in flight (after
+                # a scale-in the adopters' resync runs on past the tail)
+                scrapes = [scrape_replica(port) for port in ports]
+                journeys = [replica_journeys(s["metrics"]) for s in scrapes]
+                return scrapes if all(j == (0, 0.0) for j in journeys) else None
+
+            scrapes = _wait_for("no journey in flight on any replica", idle, children, time.monotonic())
+            histories = [decisions(port) for port in ports]
+            time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
+        watch.check()
+        final = aws.chain_counts()
+        if final != (n, n, n):
+            raise PhaseError(f"autoscale {name}: chain counts {final} at the end")
+        creates = sum(s["ops"].get("create_accelerator", 0.0) for s in scrapes)
+        if creates != n:
+            raise PhaseError(f"autoscale {name}: {creates} create_accelerator calls for {n} Services")
+        if observe_only:
+            suppressed = [
+                (r, d) for r, history in enumerate(histories) for d in history
+                if d["action"] == "scale-out" and "observe-only" in d["rails"]
+            ]
+            if not suppressed or target_seen["max"] != AUTOSCALE_TO:
+                raise PhaseError(
+                    f"autoscale observe-only: {len(suppressed)} scale-outs held by observe-only, "
+                    f"target-shards gauge at most {target_seen['max']}"
+                )
+        exits = {child.name: child.terminate() for child in children}
+    finally:
+        ring_stop.set()
+        for child in children:
+            child.kill()
+        server.stop()
+        ring_watch.join(JOIN_TIMEOUT)
+    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
+    if set(exits.values()) != {0} or tracebacks:
+        raise PhaseError(f"autoscale {name}: exit statuses {exits}, tracebacks from {tracebacks}")
+    per_replica = []
+    for scrape, history in zip(scrapes, histories):
+        tally: dict[str, int] = {}
+        rails: dict[str, int] = {}
+        for d in history:
+            tally[f"{d['action']}/{d['reason']}"] = tally.get(f"{d['action']}/{d['reason']}", 0) + 1
+            for rail in d["rails"]:
+                rails[rail] = rails.get(rail, 0) + 1
+        per_replica.append({
+            "owned": scrape["sharding"]["owned"],
+            "decisions": tally,
+            "suppressed": rails,
+            "executed": [
+                {k: d[k] for k in ("action", "reason", "current_shards", "target_shards")}
+                for d in history if d["executed"]
+            ],
+        })
+    scale_in = None
+    if 2 in epochs:
+        scale_in = {"after_epoch1_s": epochs[2] - epochs[1]}
+        for replica, history in enumerate(histories):
+            for d in history:
+                if d["executed"] and d["action"] == "scale-in":
+                    scale_in.update({"replica": replica, "reason": d["reason"],
+                                     "evidence": d["evidence"]})
+    mutating = pkg.fake_backend._MUTATING_PREFIXES
+    ops = {}
+    for scrape in scrapes:
+        for op, count in scrape["ops"].items():
+            ops[op] = ops.get(op, 0.0) + count
+    mutations = sum(count for op, count in ops.items() if op.startswith(mutating))
+    flock_op_s = flock_op_seconds(pkg, state_path)
+    evidence = scale_out["evidence"] if scale_out is not None else {}
+    return {
+        "run": name,
+        "services": {"base": n_base, "wave": n_wave},
+        "latency_s": latency,
+        "lease_s": lease_s,
+        "base_s": base_s,
+        "epochs_s": {str(e): t - wave_at for e, t in sorted(epochs.items())},
+        "stable_s": {str(e): t - wave_at for e, t in sorted(stable_at.items())},
+        "scale_out": None if scale_out is None else {
+            "replica": scale_out["replica"],
+            "reason": scale_out["reason"],
+            "reaction_s": epochs[1] - wave_at,
+            "burn": evidence.get("burn"),
+            "oldest_unconverged_age_s": evidence.get("oldest_unconverged_age_s"),
+            "transition_stable_s": stable_at[1] - epochs[1] if 1 in stable_at else None,
+        },
+        "scale_in": scale_in,
+        "drain_s": drained_at - wave_at,
+        "settle_s": settle_s,
+        "create_accelerator": int(creates),
+        "journeys": journey_counts(pkg, [s["metrics"] for s in scrapes]),
+        "replicas": per_replica,
+        "target_shards_max": target_seen["max"],
+        "aimd_ceiling_sums_max": dict(sorted(ceilings_seen.items())),
+        "call_rates_max": dict(sorted(rates_seen.items())),
+        "mutations": int(mutations),
+        "flock_busy_share": mutations * flock_op_s / elapsed,
+        "watch": {"polls": watch.polls, "max_gap_s": watch.max_gap_s},
+        "elapsed_s": elapsed,
+        "replica_cores_busy": sum(cpu.values()) / elapsed,
+        "this_process_cores_busy": own_cpu / elapsed,
+        "exits": exits,
+    }
+
+
+def autoscale_runs(
+    pkg, package: str, n_base: int, n_wave: int, latency: float, workdir: pathlib.Path
+) -> dict:
+    """``autoscale_fleet``'s acting run and its observe-only twin side by
+    side, the twin ``AUTOSCALE_TWIN_DELAY`` s behind, each on its own
+    apiserver, account and ports (any failure of either is raised).  Beside the runs, the cores that this process and
+    its children keep busy, read every ``AUTOSCALE_BUSY_READ`` s: the two
+    runs share the host, and more than half its cores busy would make
+    them measure each other."""
+    def run(observe_only: bool) -> dict:
+        rundir = workdir / ("observe-only" if observe_only else "acting")
+        rundir.mkdir(parents=True, exist_ok=True)
+        if observe_only:
+            time.sleep(AUTOSCALE_TWIN_DELAY)
+        return autoscale_fleet(pkg, package, n_base, n_wave, latency, rundir, observe_only)
+
+    busy: list[float] = []
+    done = threading.Event()
+
+    def sample() -> None:
+        last = (time.monotonic(), tree_cpu_seconds())
+        while not done.wait(AUTOSCALE_BUSY_READ):
+            now = (time.monotonic(), tree_cpu_seconds())
+            busy.append(max(0.0, now[1] - last[1]) / (now[0] - last[0]))
+            last = now
+
+    sampler = threading.Thread(target=sample, name="busy-cores", daemon=True)
+    sampler.start()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+            futures = {"acting": pool.submit(run, False), "observe-only": pool.submit(run, True)}
+            runs = {k: f.result() for k, f in futures.items()}
+    finally:
+        done.set()
+        sampler.join(JOIN_TIMEOUT)
+    return {
+        **runs,
+        "busy_cores_max": max(busy, default=0.0),
+        "busy_cores_mean": sum(busy) / len(busy) if busy else 0.0,
+        "busy_cores": busy,
     }
 
 
@@ -2004,6 +2540,55 @@ def phase_resize(n: int, card: str) -> dict:
     )
     print("resize " + json.dumps(run), flush=True)
     return run
+
+
+def phase_autoscale(card: str) -> dict:
+    """The autoscaler canary through the port's command line, the acting
+    run and its observe-only twin side by side; ``autoscale_fleet``
+    holds each to its hard bounds."""
+    pkg = load(PORT)
+    start = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-autoscale-") as workdir:
+        runs = autoscale_runs(
+            pkg, PORT, AUTOSCALE_BASE, AUTOSCALE_WAVE, SHARD_LATENCY, pathlib.Path(workdir)
+        )
+    runs["wall_s"] = time.monotonic() - start
+    acting, twin = runs["acting"], runs["observe-only"]
+    out, scale_in = acting["scale_out"], acting["scale_in"]
+    print(
+        f"autoscale: {AUTOSCALE_REPLICAS} x python -m {PORT} controller --autoscale "
+        f"--shard-count {AUTOSCALE_FROM} --shards-per-replica 1 (queue {AUTOSCALE_QUEUE[0]} qps / "
+        f"burst {AUTOSCALE_QUEUE[1]}, {SHARD_WORKERS} workers, {SHARD_LATENCY} s fake AWS "
+        f"latency, interval {AUTOSCALE_INTERVAL:g} s, cooldowns {AUTOSCALE_COOLDOWN_OUT:g}/"
+        f"{AUTOSCALE_COOLDOWN_IN:g} s), {AUTOSCALE_BASE} Services then a wave of "
+        f"{AUTOSCALE_WAVE}, an acting run and an observe-only twin side by side (the twin "
+        f"{AUTOSCALE_TWIN_DELAY:g} s behind); acting: ring epochs "
+        f"at {acting['epochs_s']} s after the wave's first create, scale-out by replica "
+        f"{out['replica']} for {out['reason']} {out['reaction_s']} s after the wave (burn "
+        f"{out['burn']}, oldest unconverged age {out['oldest_unconverged_age_s']} s), every "
+        f"replica stable at {AUTOSCALE_TO}x64 {out['transition_stable_s']} s after the request; "
+        f"scale-in {scale_in if scale_in is not None else 'none'}; wave drained "
+        f"{acting['drain_s']} s after its first create (observe-only twin: {twin['drain_s']} s, "
+        f"max target-shards gauge {twin['target_shards_max']}); journeys in flight 0 on every "
+        f"replica {acting['settle_s']} / {twin['settle_s']} s after the last chain with the ring "
+        f"stable; GA spec p50/p99 {acting['journeys']['ga']['p50_s']}/"
+        f"{acting['journeys']['ga']['p99_s']} s acting, {twin['journeys']['ga']['p50_s']}/"
+        f"{twin['journeys']['ga']['p99_s']} s twin; decisions per replica acting "
+        f"{[r['decisions'] for r in acting['replicas']]}, suppressed "
+        f"{[r['suppressed'] for r in acting['replicas']]}; twin {[r['decisions'] for r in twin['replicas']]}, "
+        f"suppressed {[r['suppressed'] for r in twin['replicas']]}; create_accelerator "
+        f"{acting['create_accelerator']}/{twin['create_accelerator']}; AIMD ceiling sums at most "
+        f"{acting['aimd_ceiling_sums_max']} /s, call rates at most {acting['call_rates_max']} /s "
+        f"(budget {SHARD_BUDGET_QPS}); cores busy in this process and its children at most "
+        f"{runs['busy_cores_max']} (mean {runs['busy_cores_mean']}) of {os.cpu_count()}, the "
+        f"replicas {acting['replica_cores_busy']} / {twin['replica_cores_busy']}, this process "
+        f"(both apiservers) {acting['this_process_cores_busy']}, flock share "
+        f"{acting['flock_busy_share']}; phase {runs['wall_s']} s (host-bound, the card is idle "
+        f"in this phase) on {card}",
+        flush=True,
+    )
+    print("autoscale " + json.dumps(runs), flush=True)
+    return runs
 
 
 def sim_replay(pkg, card: str) -> list[dict]:
@@ -2459,6 +3044,7 @@ def main(argv=None) -> int:
         phase_process(PROCESS_SERVICES, card)
         phase_shard(SHARD_SERVICES, card)
         phase_resize(SHARD_SERVICES, card)
+        phase_autoscale(card)
         phase_sim(args.sim_services, card)
         phase_analysis(args.services, card)
         phase_graft(torch, args.seed, card)

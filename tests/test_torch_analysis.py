@@ -36,13 +36,20 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # functions of the port with no counterpart in the reference, named as
-# the reference would name them: the drain fence of the live resize
-# (ROADMAP.md Queue 3), which the worker closures reach through the
-# shard membership
+# the reference would name them: the drain fence of the live resize,
+# and the release of a replica's journeys of keys it stops serving, the
+# quota slice of a drained dropped shard and the autoscaler's fleet-wide
+# cooldowns (ROADMAP.md Queue 3), which the worker closures reach
+# through the shard membership and the autoscaler
 PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.sharding.membership::ShardFilter.inflight",
     "agac_tpu.sharding.membership::ShardMembership._adopting",
     "agac_tpu.sharding.membership::ShardMembership._flush_releases",
+    "agac_tpu.sharding.membership::ShardMembership._released",
+    "agac_tpu.sharding.membership::ShardMembership._dropped_drained",
+    "agac_tpu.observability.journey::JourneyTracker.release",
+    "agac_tpu.autoscaler.policy::ScalePolicy._observe_epoch",
+    "agac_tpu.autoscaler.policy::ScalePolicy.note_executed",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})
