@@ -203,6 +203,9 @@ class DiscoveryCache:
         self._tags_ttl = tags_ttl
         self._tags_loaded_at: Optional[float] = None
         self._tags_refreshing = False
+        # arn -> tags an ``invalidate_keeping_tags`` kept from the
+        # snapshot it dropped, reusable until a snapshot is loaded again
+        self._kept_tags: Optional[dict] = None
         # health-plane hook (factory wires it to "is the GA circuit
         # open"): while True, an expired snapshot is served stale
         # instead of dispatching a reload that is known to fail —
@@ -253,9 +256,10 @@ class DiscoveryCache:
         store restamps the tag clock."""
         with self._lock:
             now = self._clock()
+            known = self._known_tags()
             due = (
                 self._tags_ttl is None
-                or self._entries is None
+                or known is None
                 or self._tags_loaded_at is None
                 or now >= self._tags_loaded_at + self._tags_ttl
             )
@@ -264,7 +268,14 @@ class DiscoveryCache:
                 self._tags_refreshing = True
                 return {}
             self.tag_incremental_loads += 1
+            return known
+
+    def _known_tags(self) -> Optional[dict]:
+        """The snapshot's arn -> tags, or those an
+        ``invalidate_keeping_tags`` kept (caller holds the lock)."""
+        if self._entries is not None:
             return {arn: tags for arn, (_, tags) in self._entries.items()}
+        return self._kept_tags
 
     @staticmethod
     def _build_index(
@@ -346,6 +357,10 @@ class DiscoveryCache:
                 elif op == "upsert":
                     accelerator, tags = payload
                     entries[accelerator.accelerator_arn] = (accelerator, tags)
+                elif op == "refresh":
+                    known = entries.get(payload.accelerator_arn)
+                    if known is not None:
+                        entries[payload.accelerator_arn] = (payload, known[1])
                 else:  # remove
                     entries.pop(payload, None)
             if discard:
@@ -424,10 +439,25 @@ class DiscoveryCache:
                 self._list_cache = list(self._entries.values())
             return self._list_cache
 
+    def invalidate_keeping_tags(self) -> None:
+        """``invalidate`` for a change known to leave accelerators' tags
+        as they were (this process starts serving keys another process
+        served): the next load lists every accelerator anew, but reuses
+        the tags of those it knew, within the tag window, as it does
+        between full tag re-lists.  An owner tag never changes; another
+        process's re-tag is an out-of-band tag edit, re-read within the
+        window."""
+        with self._lock:
+            kept = self._known_tags()
+        self.invalidate()
+        with self._lock:
+            self._kept_tags = kept
+
     def invalidate(self) -> None:
         """External/unknown change: drop the snapshot, and poison any
         in-flight load so its result is returned but not stored."""
         with self._lock:
+            self._forget_kept_tags()
             self._entries = None
             self._by_tag = {}
             self._list_cache = None
@@ -455,6 +485,24 @@ class DiscoveryCache:
                     self._index_discard(accelerator.accelerator_arn, old[1])
                 self._entries[accelerator.accelerator_arn] = entry
                 self._index_add(accelerator.accelerator_arn, entry[1])
+                self._list_cache = None
+
+    def _forget_kept_tags(self) -> None:
+        self._kept_tags = None  # caller holds the lock
+
+    def refresh(self, accelerator: Accelerator) -> None:
+        """Fold a local change of an accelerator's own fields (a
+        disable: ``enabled`` and ``status``) into the snapshot, its tags
+        kept.  An accelerator the snapshot does not hold needs nothing:
+        the next load lists it as it is.  During a load the change is
+        journaled and folded into the loaded snapshot."""
+        arn = accelerator.accelerator_arn
+        with self._lock:
+            if self._journal is not None:
+                self._journal.append(("refresh", accelerator))
+            old = self._entries.get(arn) if self._entries is not None else None
+            if old is not None:
+                self._entries[arn] = (accelerator, old[1])
                 self._list_cache = None
 
     def remove(self, accelerator_arn: str) -> None:

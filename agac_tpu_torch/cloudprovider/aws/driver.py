@@ -342,6 +342,7 @@ class AWSDriver:
         settle_table=None,
         change_batcher=None,
         stage_requeue: float = 0.0,
+        refresh_discovery_on_disable: bool = False,
     ):
         # the observability plane's driver hook: every call
         # through these handles is timed into the per-service/per-op
@@ -387,6 +388,11 @@ class AWSDriver:
         self._settle_table = settle_table
         self._change_batcher = change_batcher
         self._stage_requeue = stage_requeue
+        # True: a teardown's disable refreshes its accelerator in the
+        # discovery snapshot instead of dropping the snapshot, whose
+        # reload would re-read every accelerator's tags (the factory
+        # sets it; the sim keeps the drop)
+        self._refresh_discovery_on_disable = refresh_discovery_on_disable
         if settle_table is not None:
             # re-registration per driver construction is idempotent;
             # GA and Route53 are global services, so the last driver's
@@ -1150,8 +1156,11 @@ class AWSDriver:
         if accelerator.enabled:
             klog.infof("Disabling Global Accelerator %s", arn)
             self.ga.update_accelerator(arn, enabled=False)
-            self._invalidate_discovery()
+            if not self._refresh_discovery_on_disable:
+                self._invalidate_discovery()
             accelerator = self.ga.describe_accelerator(arn)
+            if self._refresh_discovery_on_disable and self._discovery_cache is not None:
+                self._discovery_cache.refresh(accelerator)
         if accelerator.status != ACCELERATOR_STATUS_DEPLOYED:
             if self._settle_table is not None:
                 raise SettleWait(

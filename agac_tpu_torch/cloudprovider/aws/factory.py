@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import os
 import threading
+from typing import Callable
 
 from ...observability import instruments as obs_instruments
 from ...observability import metrics as obs_metrics
@@ -460,7 +461,9 @@ def invalidate_read_plane() -> None:
     ``Manager.on_reshard``, so a replica adopting another process's
     keyspace re-reads AWS instead of trusting snapshots taken before
     the ownership change — a stale discovery snapshot at adoption time
-    means duplicate accelerators.  A durable fake account
+    means duplicate accelerators.  The discovery snapshot keeps the tags
+    of the accelerators it knew, so the re-read lists every accelerator
+    and reads tags only for new ones.  A durable fake account
     (``AGAC_FAKE_STATE``) re-reads its file on the next call too."""
     with _lock:
         discovery, zones = _discovery_cache, _zone_cache
@@ -469,13 +472,34 @@ def invalidate_read_plane() -> None:
     if isinstance(backend, FileBackedFakeAWSBackend):
         backend.invalidate_reads()
     if discovery is not None:
-        discovery.invalidate()
+        discovery.invalidate_keeping_tags()
     if zones is not None:
         zones.invalidate()
     if topology is not None:
         topology.invalidate_all()
     if records is not None:
         records.invalidate_all()
+
+
+def adoption_hooks() -> tuple[Callable[[], None], Callable[[], None]]:
+    """``(on_adopt, on_reshard)`` for a command-line Manager: both drop
+    the read plane (``invalidate_read_plane``), except that the resync
+    which follows an adoption keeps what the adoption dropped and a
+    load since has re-read: that load read after the adoption, and
+    dropping it would re-read every accelerator's tags once more."""
+    adopted = threading.Event()
+
+    def adoption() -> None:
+        adopted.set()
+        invalidate_read_plane()
+
+    def resync() -> None:
+        if adopted.is_set():
+            adopted.clear()
+            return
+        invalidate_read_plane()
+
+    return adoption, resync
 
 
 def read_plane_stats() -> dict:
@@ -544,6 +568,7 @@ def real_cloud_factory(region: str) -> AWSDriver:
         settle_table=shared_settle_table(),
         change_batcher=shared_change_batcher(),
         stage_requeue=_chain_stage_requeue(),
+        refresh_discovery_on_disable=True,
         **_driver_timing(),
     )
     # expose every live cache's hit/miss counters as collection-time

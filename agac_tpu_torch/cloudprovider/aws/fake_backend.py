@@ -1412,6 +1412,20 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
             super().set_load_balancer_state(*args, **kwargs)
             self._save()
 
+    def list_accelerators(self, max_results, next_token):
+        """ListAccelerators with a cursor for its token (the last ARN
+        of the page, pages in ARN order) where the in-memory account
+        uses an offset: with another process deleting accelerators
+        between two pages of a drain, an offset skips the accelerator
+        that moves across the page boundary, and the drain misses it."""
+        with self._lock:
+            everything, _ = super().list_accelerators(max(1, len(self._accelerators)), None)
+        ordered = sorted(everything, key=lambda a: a.accelerator_arn)
+        if next_token:
+            ordered = [a for a in ordered if a.accelerator_arn > next_token]
+        page = ordered[:max_results]
+        return page, (page[-1].accelerator_arn if len(ordered) > max_results else None)
+
     def records_in_zone(self, zone_id):
         self._reload_if_changed()
         return super().records_in_zone(zone_id)

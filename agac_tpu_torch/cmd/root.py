@@ -543,10 +543,10 @@ def run_controller(args) -> int:
         atexit.register(_close_capture)
 
     from ..cloudprovider.aws.factory import (
+        adoption_hooks,
         configure_api_health,
         configure_pipeline,
         configure_read_plane,
-        invalidate_read_plane,
         real_cloud_factory,
         settle_poll_interval,
         shared_health_tracker,
@@ -584,12 +584,14 @@ def run_controller(args) -> int:
     manager = Manager(health=tracker, metrics_registry=obs_metrics.registry())
     # reshard adoptions re-read AWS through fresh snapshots, from the
     # moment the keys are served
-    manager.on_reshard = invalidate_read_plane
-    manager.on_adopt = invalidate_read_plane
+    manager.on_adopt, manager.on_reshard = adoption_hooks()
     # this process's journey tracker holds its own journeys only: keys
     # it stops serving close here without a latency, and the new owner
     # observes their convergence in its own process
     manager.on_release = manager.release_journeys
+    # confirmed orphans are torn down by delete reconciles on workers,
+    # parking on settle waits like a delete event's teardown
+    manager.gc_hands_over = True
 
     import threading
 

@@ -43,10 +43,20 @@ behind hard rails:
 An orphan whose owner REAPPEARS (a Service deleted and re-created
 while pending) is *adopted*: dropped from the pending table and
 counted, never deleted — the reconcile path repairs any drift.
+
+With an ``OrphanTeardown`` wired (the command line does), a confirmed
+orphan is not torn down inside the sweep: its owner is handed to
+teardown workers, whose funnel verifies ownership live at the deletion
+point, parks on the accelerator's settle wait in the pending-settle
+table and resumes from it, as a delete event's teardown does.  An
+owner whose teardown this process is already running is no candidate,
+so the sweep never races the reactive path, and ``deleted`` counts
+the owners it handed over.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -59,8 +69,9 @@ from ..observability import profile as obs_profile
 from ..observability import slo as obs_slo
 from ..observability.metrics import MetricsRegistry
 from ..sharding import OWNS_ALL
-from ..sharding.reports import merge_shard_reports
-from .common import CloudFactory, GLOBAL_REGION
+from ..sharding.reports import merge_shard_reports, store_shard_report
+from ..reconcile import RateLimitingQueue, Result
+from .common import CloudFactory, GLOBAL_REGION, run_workers, with_shard_guard
 
 CONTROLLER_AGENT_NAME = "garbage-collector"
 
@@ -113,6 +124,70 @@ def verify_record_orphan_ownership(
     return not owner_exists(resource, ns, name)
 
 
+TEARDOWN_QUEUE = f"{CONTROLLER_AGENT_NAME}-teardown"
+
+
+class OrphanTeardown:
+    """Where the sweeper's confirmed orphans are torn down, once one is
+    wired (the command line wires it):
+
+    - an accelerator owner goes to this queue, worked by ``workers``
+      threads through the sweeper's own funnel (live ownership
+      verify, then the AWS driver's teardown), so up to ``workers`` chains
+      come down at once, and each parks on its accelerator's settle
+      wait in the pending-settle table and resumes from it, as a
+      delete event's teardown does;
+    - a record owner goes to the Route53 controller's queue, whose
+      delete reconcile removes its TXT and A records.
+
+    ``controller_queues`` maps (kind, resource) to the queue of the
+    controller that tears that kind of orphan down on a delete event;
+    ``tearing_down`` names an owner this process is tearing down
+    already, in one of those queues or in this one: queued, running,
+    backing off or parked (``settle_table`` is a callable, bound after
+    the controllers)."""
+
+    def __init__(self, controller_queues: dict, settle_table: Callable[[], object], workers: int):
+        self._controller_queues = controller_queues
+        self._settle_table = settle_table
+        self._workers = workers
+        self.queue = RateLimitingQueue(name=TEARDOWN_QUEUE)
+
+    def tearing_down(self, kind: str, owner: tuple[str, str, str]) -> bool:
+        resource, ns, name = owner
+        queued = [(self._controller_queues[(kind, resource)], f"{ns}/{name}")]
+        if kind == "accelerators":
+            queued.append((self.queue, "/".join(owner)))
+        table = self._settle_table()
+        parked = set(table.parked_keys()) if table is not None else set()
+        return any(
+            key in parked or queue.contains(key) or queue.delayed_peek(key) is not None
+            for queue, key in queued
+        )
+
+    def hand_over(self, kind: str, owner: tuple[str, str, str]) -> None:
+        resource, ns, name = owner
+        if kind == "accelerators":
+            self.queue.add("/".join(owner))
+        else:
+            self._controller_queues[(kind, resource)].add(f"{ns}/{name}")
+
+    def start_workers(self, stop: threading.Event, key_to_obj, process_delete) -> None:
+        run_workers(
+            TEARDOWN_QUEUE, self.queue, workers=self._workers, stop=stop,
+            key_to_obj=key_to_obj, process_delete=process_delete,
+            # the owner came back: its controller's own reconcile adopts
+            process_create_or_update=_owner_returned,
+        )
+
+    def stop_workers(self) -> None:
+        self.queue.shutdown()
+
+
+def _owner_returned(obj) -> Result:
+    return Result()
+
+
 class GarbageCollector:
     """Periodic orphan sweeper over ownership ground truth.
 
@@ -128,15 +203,25 @@ class GarbageCollector:
         health=None,
         registry: "MetricsRegistry | None" = None,
         shard_filter=None,
+        teardown: Optional[OrphanTeardown] = None,
     ):
         self._config = config
         self._cloud = cloud_factory
         self._health = health
+        # None: confirmed orphans are torn down inside the sweep
+        self._teardown = teardown
         # sharding candidate partition: a sweeper only ever
         # considers orphans whose owner key its shards own — no replica
         # can sweep (or even grace-count) another shard's owners.
         # OWNS_ALL = the single-sweeper-per-cluster semantics.
         self._shards = shard_filter if shard_filter is not None else OWNS_ALL
+        # the teardown workers' process functions, behind the shard guard
+        self._guarded_teardowns = {
+            resource: with_shard_guard(
+                self._shards, functools.partial(self._tear_down_accelerators, resource)
+            )
+            for resource in (_KNOWN_RESOURCES if teardown is not None else ())
+        }
         self._service_informer = informer_factory.informer("Service")
         self._ingress_informer = informer_factory.informer("Ingress")
         self._service_lister = self._service_informer.lister()
@@ -243,6 +328,9 @@ class GarbageCollector:
             "skipped_unsynced": False,
             "listing_failed": [],
         }
+        if self._teardown is not None:
+            # owners a controller was already tearing down
+            report["in_teardown"] = 0
         self._m_sweeps.inc()
         report["sweep"] = int(self._m_sweeps.value())
         if not self._shards.owned_shards():
@@ -292,7 +380,7 @@ class GarbageCollector:
             dry_run=report["dry_run"],
         )
         with self._lock:
-            self.last_sweep_reports[report["shards"]] = report
+            store_shard_report(self.last_sweep_reports, report)
 
     @property
     def last_sweep_report(self) -> dict:
@@ -345,6 +433,9 @@ class GarbageCollector:
                         *owner, arn,
                     )
                 continue
+            if self._teardown is not None and self._teardown.tearing_down("accelerators", owner):
+                report["in_teardown"] += 1
+                continue
             count = pending.get(arn, 0) + 1
             report["candidates"]["accelerators"] += 1
             if count < self._config.grace_sweeps:
@@ -362,6 +453,12 @@ class GarbageCollector:
             if budget[0] <= 0:
                 report["budget_deferred"] += 1
                 next_pending[arn] = count
+                continue
+            if self._teardown is not None:
+                # verified live at the deletion point, by the worker
+                self._teardown.hand_over("accelerators", owner)
+                report["deleted"]["accelerators"] += 1
+                budget[0] -= 1
                 continue
             try:
                 if self._delete_accelerator_orphan(cloud, arn, owner):
@@ -398,6 +495,9 @@ class GarbageCollector:
             if self._owner_exists(*owner):
                 if owner in pending:
                     report["adopted"] += 1
+                continue
+            if self._teardown is not None and self._teardown.tearing_down("records", owner):
+                report["in_teardown"] += 1
                 continue
             count = pending.get(owner, 0) + 1
             report["candidates"]["records"] += 1
@@ -446,9 +546,37 @@ class GarbageCollector:
         cloud.cleanup_global_accelerator(arn)
         return True
 
+    def _owner_object(self, key: str):
+        """The teardown worker's owner lookup (``resource/ns/name``):
+        NotFoundError sends the key down the delete path."""
+        resource, ns, name = key.split("/", 2)
+        lister = self._service_lister if resource == "service" else self._ingress_lister
+        return lister.namespaced(ns).get(name)
+
+    def _tear_down_owner(self, key: str) -> Result:
+        """The teardown worker's process function: the owner's
+        accelerators, as its tags name them, through the funnel below,
+        behind the shard guard (a key the ring moved away is the new
+        owner's to sweep).  A settle wait parks the key."""
+        resource, _, namespaced = key.partition("/")
+        return self._guarded_teardowns[resource](namespaced)
+
+    def _tear_down_accelerators(self, resource: str, namespaced: str) -> Result:
+        ns, name = namespaced.split("/", 1)
+        owner = (resource, ns, name)
+        cloud = self._cloud(GLOBAL_REGION)
+        for accelerator in cloud.list_global_accelerator_by_resource(
+            self._config.cluster_name, resource, ns, name
+        ):
+            self._delete_accelerator_orphan(cloud, accelerator.accelerator_arn, owner)
+        return Result()
+
     def _delete_record_orphan(self, cloud, owner: tuple[str, str, str]) -> bool:
         if not verify_record_orphan_ownership(owner, self._owner_exists):
             return False
+        if self._teardown is not None:
+            self._teardown.hand_over("records", owner)
+            return True
         resource, ns, name = owner
         cloud.cleanup_record_set(self._config.cluster_name, resource, ns, name)
         return True
@@ -464,6 +592,8 @@ class GarbageCollector:
             self._config.max_deletes,
             ", DRY-RUN" if self._config.dry_run else "",
         )
+        if self._teardown is not None:
+            self._teardown.start_workers(stop, self._owner_object, self._tear_down_owner)
         while not stop.wait(self._config.interval):
             try:
                 # stage accountant: the threaded loop's
@@ -473,6 +603,8 @@ class GarbageCollector:
                     self.sweep_once()
             except Exception as err:  # a bad sweep must not kill the loop
                 klog.errorf("gc sweep failed: %s", err)
+        if self._teardown is not None:
+            self._teardown.stop_workers()
         klog.info("Shutting down garbage collector")
 
     def status(self) -> dict:

@@ -59,10 +59,11 @@ from .controllers import (
     Route53Config,
     Route53Controller,
 )
+from .controllers.garbagecollector import OrphanTeardown
 from .controllers.common import CloudFactory
 from .observability import instruments as obs_instruments
 from .sharding import OWNS_ALL, ShardMembership, ShardingConfig
-from .sharding.reports import merge_shard_reports
+from .sharding.reports import merge_shard_reports, store_shard_report
 
 INFORMER_RESYNC_PERIOD = 30.0
 
@@ -187,6 +188,11 @@ class Manager:
         # the orphan GC sweeper, built by run() when its
         # interval is > 0; None = disabled (reference parity)
         self.gc: Optional[GarbageCollector] = None
+        # True: the sweeper hands confirmed orphans to the
+        # controllers' delete reconciles (``OrphanTeardown``), which
+        # park on settle waits and run on workers.  Set by cmd/root;
+        # the sim keeps the sweep's inline teardown.
+        self.gc_hands_over = False
         # the pending-settle table the run() caller wired;
         # None = blocking-settle parity.  settle_tick() drives one
         # scheduler round explicitly (tests/bench, the drift_tick
@@ -279,6 +285,7 @@ class Manager:
                 informer_factory, gc_config, cloud_factory, health=self._health,
                 registry=self.metrics_registry,
                 shard_filter=self.shard_filter,
+                teardown=self._orphan_teardown(config) if self.gc_hands_over else None,
             )
         return informer_factory
 
@@ -385,6 +392,24 @@ class Manager:
             "shard-rebalance",
             owned=sorted(membership.owned_shards()),
             quota_fraction=round(membership.quota_fraction(), 4),
+        )
+
+    def _orphan_teardown(self, config: ControllerConfig) -> OrphanTeardown:
+        """The sweeper's teardown beside the GA and Route53 controllers:
+        two workers per owner a sweep may hand over, since a teardown
+        runs twice (to its settle wait, and on from it), so a sweep's
+        new teardowns need not wait behind the last sweep's resumes."""
+        ga = self.controllers["global-accelerator-controller"]
+        route53 = self.controllers["route53-controller"]
+        return OrphanTeardown(
+            {
+                ("accelerators", "service"): ga.service_queue,
+                ("accelerators", "ingress"): ga.ingress_queue,
+                ("records", "service"): route53.service_queue,
+                ("records", "ingress"): route53.ingress_queue,
+            },
+            lambda: self.settle_table,
+            workers=2 * max(1, config.garbage_collector.max_deletes),
         )
 
     def _on_shard_adopt(self) -> None:
@@ -666,7 +691,7 @@ class Manager:
             # tick is skipped and says so instead of adding load
             report["shed"] = True
             report["partial"] = True
-            self.last_drift_reports[report["shards"]] = report
+            store_shard_report(self.last_drift_reports, report)
             obs_recorder.flight_recorder().record(
                 "drift-tick", shards=report["shards"], shed=True
             )
@@ -703,7 +728,7 @@ class Manager:
                             count += 1
                 report["enqueued"][name] = count
                 enqueued += count
-        self.last_drift_reports[report["shards"]] = report
+        store_shard_report(self.last_drift_reports, report)
         obs_recorder.flight_recorder().record(
             "drift-tick",
             shards=report["shards"],

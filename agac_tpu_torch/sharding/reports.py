@@ -38,6 +38,27 @@ def _merge_value(merged, value):
     return value  # strings and the like: last writer wins
 
 
+def _token_shards(token: str) -> frozenset:
+    if token == "none":
+        return frozenset()
+    return frozenset(token.split(","))  # "all" is a shard set of its own
+
+
+def store_shard_report(reports: dict[str, dict], report: dict) -> None:
+    """Store one process's ``report`` under its ownership token, in
+    place of that process's earlier reports whose token shares a shard
+    with it or covers none: once a replica adopts shard 0 beside shard
+    1, its report for ``"0,1"`` supersedes the one for ``"1"``, and the
+    additive merge would count shard 1 twice (and a ``"none"`` report's
+    ``skipped_no_shards`` would stay true forever).  Disjoint tokens
+    stay side by side, as the merge intends."""
+    token = report["shards"]
+    shards = _token_shards(token)
+    for old in [t for t in reports if t == token or not _token_shards(t) or _token_shards(t) & shards]:
+        del reports[old]
+    reports[token] = report
+
+
 def merge_shard_reports(reports: dict[str, dict]) -> dict:
     """Fold per-shard partial reports (keyed by ownership token) into
     one cluster-level view: numbers add, nested dicts merge, lists

@@ -80,7 +80,30 @@ Phases, in order; any failure exits non-zero before the last line:
    drain times with and without the scale-out, decisions per replica
    and the journeys' percentiles print beside the bounds.  Host code:
    the card is idle in this phase.
-7. ``sim``: the port's virtual-time runtime, which runs the whole
+7. ``teardown``: deletion, teardown and the orphan sweeper over
+   processes, on the ``shard`` phase's fleet and account.  Two ``python
+   -m agac_tpu_torch controller --shard-count 2 --shards-per-replica 2
+   --gc-interval 1 --gc-grace-sweeps 2 --gc-max-deletes 10`` replicas,
+   each holding one shard, converge 200 Services (one in ten
+   hostname-annotated, in the fake zone ``example.com``, so 20 TXT+A
+   pairs), with every accelerator settling through two reads of the
+   account (``AGAC_FAKE_SETTLE``), so every teardown parks on its
+   disable.  The even-numbered half is deleted in one burst; once a
+   deleted owner's accelerator is disabled and not yet deleted, the
+   holder of shard 0 gets SIGKILL.  Its delete events die with it, so
+   after the survivor steals its lease, its sweeper must find those
+   orphans from ownership tags and TXT heritage alone.  A watch reads
+   the shared account every 0.1 s: every kept Service keeps its
+   accelerator (same ARN, enabled) and records at every read, and no
+   accelerator is disabled twice (nor in the replicas' logs).  The
+   phase requires exactly the kept half's chains and records at the
+   end, the survivor's ``/healthz`` gc block counting at least the dead
+   replica's orphans, no sweep over ``--gc-max-deletes``, the last
+   orphan gone within takeover + (grace - 1 + ceil(K / budget) + 1) x
+   interval + 2 x settle + 15 s of the kill, the 400/s budget at every
+   read, ``converged`` for every kept Service, no journey left in flight
+   and a clean exit.  Host code: the card is idle in this phase.
+8. ``sim``: the port's virtual-time runtime, which runs the whole
    Manager on one thread and folds every dispatch into a SHA-256
    event-trace hash.  ``replay`` replays every checked-in incident
    capture (``tests/captures/*.jsonl``) and requires a byte-identical
@@ -100,7 +123,7 @@ Phases, in order; any failure exits non-zero before the last line:
    of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
    hash.  The pins are what the reference package computes for the
    same runs.  Host code: the card is idle in this phase.
-8. ``analysis``: the port's static analyses over its own tree, then
+9. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
    determinism, confinement) must pass their gate with the port's
@@ -110,7 +133,7 @@ Phases, in order; any failure exits non-zero before the last line:
    watchdog's observed lock edges and stage-tagged writes must fall
    inside the static lock graph and footprint table.  Host code: the
    card is idle in this phase.
-9. ``graft``: the torch twin of the MLP, forward and
+10. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points; then the
    JAX program's multi-chip dry run, one train step over a 4 x 2 data x
@@ -122,7 +145,8 @@ kernel), so the kernel line lists none.  The last line is
 ``{"ok": true, "device": {...}}``.
 
 The fleet helpers, ``converge``, ``process``, ``shard_fleet``,
-``resize_fleet``, ``autoscale_fleet``, ``rollout`` and ``shard_soak`` take the package as a parameter so that
+``resize_fleet``, ``autoscale_fleet``, ``teardown_fleet``, ``rollout`` and
+``shard_soak`` take the package as a parameter so that
 tests can run the same fleet through the reference; this script itself
 only ever loads the port.
 """
@@ -241,13 +265,14 @@ AUTOSCALE_REPLICAS = 4
 AUTOSCALE_FROM, AUTOSCALE_TO = 2, 4
 AUTOSCALE_BASE, AUTOSCALE_WAVE = 40, 300
 AUTOSCALE_QUEUE = ("1", "10")
-AUTOSCALE_COOLDOWN_OUT, AUTOSCALE_COOLDOWN_IN = 90.0, 120.0
+AUTOSCALE_COOLDOWN_OUT, AUTOSCALE_COOLDOWN_IN = 90.0, 90.0
 AUTOSCALE_INTERVAL = 5.0
 # ring epoch 1 must be requested within this many s of the wave's first create
 AUTOSCALE_REACTION_BOUND = 180.0
 # the run ends this long after epoch 1 when no scale-in came, or this long
-# after the scale-in's ring is stable
-AUTOSCALE_HOLD_S, AUTOSCALE_TAIL_S = 180.0, 30.0
+# after the scale-in's ring is stable (cut, with cooldown-in, so the whole
+# script keeps a margin to the chip call's limit)
+AUTOSCALE_HOLD_S, AUTOSCALE_TAIL_S = 180.0, 5.0
 # every replica's journeys in flight reach 0 within this long of the last
 # chain completing with the ring stable
 AUTOSCALE_SETTLE_S = 15.0
@@ -256,9 +281,28 @@ AUTOSCALE_SETTLE_S = 15.0
 # be coarse over a second)
 AUTOSCALE_READ, AUTOSCALE_BUSY_READ = 1.0, 5.0
 # the observe-only twin starts this long after the acting run, so the two
-# fleets' start-ups and waves do not land on the host's cores at once (it
-# still ends before the acting run, which waits out cooldown-in)
+# fleets' start-ups and waves do not land on the host's cores at once
 AUTOSCALE_TWIN_DELAY = 30.0
+
+# the teardown phase: reactive teardown and the orphan sweeper
+# (docs/operations.md:153-233) on the shard phase's fleet and account.
+# Two replicas at two shards, each allowed both (the survivor adopts the
+# dead replica's); the sweeper at the reference's drill grace and budget
+# (tests/test_process_e2e.py:50) with the interval cut from the runbook's
+# 300 s to 1 s; every accelerator settles through AGAC_FAKE_SETTLE reads
+# of the fake account, so every teardown parks on its disable
+TEARDOWN_ZONE = "example.com"
+TEARDOWN_HOSTNAME_EVERY = 10
+TEARDOWN_GC = {"interval": 1.0, "grace_sweeps": 2, "max_deletes": 10}
+TEARDOWN_SETTLE = 2
+# the kill lands once a deleted owner's accelerator is disabled and not
+# yet deleted, while at most this share of the deleted owners'
+# accelerators is gone
+TEARDOWN_KILL_GONE = 1 / 3
+# the mop-up bound's slack beyond the sweeps it counts, s
+TEARDOWN_SLACK_S = 15.0
+# seconds between the phase's reads of the replicas
+TEARDOWN_READ = 0.5
 
 # the sim phase
 CAPTURES = REPO / "tests" / "captures"
@@ -887,7 +931,11 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
         if calls[standby] != 0 or calls[leader] == 0:
             raise PhaseError(f"AWS calls per replica {calls}: the standby (replica {standby}) called AWS")
         webhook = _check_webhook(pkg, package, env, workdir, children)
-        exits = {child.name: child.terminate() for child in children}
+        # the standby first: stopped after the leader, it may take the
+        # lease the leader released and be stopped while its controllers
+        # wait for their caches
+        order = [children[standby], children[leader], *children[2:]]
+        exits = {child.name: child.terminate() for child in order}
     finally:
         for child in children:
             child.kill()
@@ -1844,18 +1892,25 @@ def autoscale_fleet(
             if (observe_only and epoch != 0) or epoch > 2:
                 raise PhaseError(f"autoscale {name}: ring epoch {epoch} (epochs seen {sorted(epochs)})")
             try:
+                owned_before = [
+                    _get_json(f"http://127.0.0.1:{port}/healthz")["sharding"]["owned"]
+                    for port in ports
+                ]
                 views = [scrape_replica(port) for port in ports]
             except OSError:
                 return None
             ceilings: dict[str, float] = {}
             calls: dict[str, float] = {}
-            for view in views:
+            for before, view in zip(owned_before, views):
                 # over shard owners, as docs/operations.md ("Quota
                 # division") states the fleet bound: a replica holding
                 # no shard idles at the limiter's 0.5/s floor with no
-                # key to call AWS for
+                # key to call AWS for.  An owner is one that held a
+                # shard both before and after its ceilings were read: a
+                # replica that claims its first shard in between was
+                # read at the floor, not at its slice
                 for family, ceiling in view["ceilings"].items():
-                    if view["sharding"]["owned"]:
+                    if before and view["sharding"]["owned"]:
                         ceilings[family] = ceilings.get(family, 0.0) + ceiling
                 for family, count in view["calls"].items():
                     calls[family] = calls.get(family, 0.0) + count
@@ -2173,6 +2228,606 @@ def autoscale_runs(
         "busy_cores_max": max(busy, default=0.0),
         "busy_cores_mean": sum(busy) / len(busy) if busy else 0.0,
         "busy_cores": busy,
+    }
+
+
+# ---------------------------------------------------------------------------
+# the teardown phase: deletes, a kill mid-teardown and the orphan sweeper
+# ---------------------------------------------------------------------------
+
+def teardown_hostname(i: int, every: int) -> str | None:
+    """Service ``i``'s hostname, or None: the first Service of each
+    block of ``every`` whose parity is the block's, so that deleting the
+    even-numbered Services deletes every other block's hostname."""
+    block = i // every
+    if i % every != (block * (1 - every)) % 2:
+        return None
+    return f"svc{i:04d}.{TEARDOWN_ZONE}"
+
+
+def make_teardown_service(pkg, i: int, every: int):
+    """``make_shard_service``'s Service, hostname-annotated where
+    ``teardown_hostname`` gives it one.  An annotated Service sits behind
+    an NLB of its own (``service_lb``): the Route53 controller finds the
+    accelerator by its load balancer, so it must be the only one there."""
+    svc = make_shard_service(pkg, i)
+    hostname = teardown_hostname(i, every)
+    if hostname is not None:
+        svc.metadata.annotations[pkg.apis.ROUTE53_HOSTNAME_ANNOTATION] = hostname
+        svc.status.load_balancer.ingress[0] = pkg.objects.LoadBalancerIngress(hostname=service_lb(i)[1])
+    return svc
+
+
+def teardown_view(data: dict, kept: dict, doomed: set, kept_hosts: set, doomed_hosts: set) -> dict:
+    """One read of the fake account's state file (``data``, as saved):
+    the faults against the kept Services (``kept``: owner tag -> ARN;
+    ``kept_hosts``: record names), and what the deleted owners
+    (``doomed`` owner tags, ``doomed_hosts``) still hold."""
+    owner_of = {}
+    accels = {}
+    for entry in data.get("accelerators", []):
+        arn = entry["accelerator"]["accelerator_arn"]
+        accels[arn] = entry
+        owner_of[arn] = dict(map(tuple, entry["tags"])).get("aws-global-accelerator-owner")
+    records = {
+        (r["name"], r["type"]) for table in data.get("records", {}).values() for r in table
+    }
+    faults = []
+    for owner, arn in kept.items():
+        entry = accels.get(arn)
+        if entry is None or owner_of[arn] != owner:
+            faults.append(f"kept {owner}'s accelerator {arn} is gone")
+        elif not entry["accelerator"]["enabled"]:
+            faults.append(f"kept {owner}'s accelerator {arn} is disabled")
+    for host in sorted(kept_hosts):
+        missing = [t for t in ("TXT", "A") if (host, t) not in records]
+        if missing:
+            faults.append(f"kept hostname {host} lacks {missing}")
+    doomed_arns = {arn for arn, owner in owner_of.items() if owner in doomed}
+    listener_of = {
+        listener["listener_arn"]: arn
+        for arn in doomed_arns for listener in accels[arn]["listeners"]
+    }
+    groups = sum(1 for eg in data.get("endpoint_groups", []) if eg["parent"] in listener_of)
+    host_records = sum(1 for name, _ in records if name in doomed_hosts)
+    disabled = sorted(arn for arn in doomed_arns if not accels[arn]["accelerator"]["enabled"])
+    return {
+        "faults": faults,
+        "settle": {
+            arn: (e["accelerator"]["enabled"], e["accelerator"]["status"], e.get("pending_describes", 0))
+            for arn, e in accels.items()
+        },
+        "doomed_accelerators": len(doomed_arns),
+        "disabled": disabled,
+        "left": len(doomed_arns) + len(listener_of) + groups + host_records,
+    }
+
+
+def _watch_teardown(
+    state_path: str, plan: str, shared: dict, stop, ready, out_path: str
+) -> None:
+    """``TeardownWatch``'s loop, in a process of its own: read the state
+    file every ``RESIZE_POLL`` s until ``stop``; publish what the deleted
+    owners hold in ``shared``; then write the faults, the disables seen
+    (each start of ``IN_PROGRESS`` on a disabled accelerator, per ARN),
+    the read count and the longest gap between reads to ``out_path``."""
+    plan = json.loads(plan)
+    kept, doomed = plan["kept"], set(plan["doomed"])
+    kept_hosts, doomed_hosts = set(plan["kept_hosts"]), set(plan["doomed_hosts"])
+    faults: list[str] = []
+    starts: dict[str, int] = {}
+    last: dict[str, tuple] = {}
+    disabled_at_kill = None
+    polls, max_gap, previous = 0, 0.0, None
+    while True:
+        began = time.monotonic()
+        with open(state_path) as f:
+            view = teardown_view(json.load(f), kept, doomed, kept_hosts, doomed_hosts)
+        now = time.monotonic()
+        if previous is not None:
+            max_gap = max(max_gap, now - previous)
+        previous, polls = now, polls + 1
+        for fault in view["faults"]:
+            if len(faults) < 20:
+                faults.append(f"read {polls}: {fault}")
+        for arn, (enabled, status, pending) in view["settle"].items():
+            before = last.get(arn)
+            if not enabled and status == "IN_PROGRESS" and (
+                before is None or before[0] or before[1] != "IN_PROGRESS" or pending > before[2]
+            ):
+                starts[arn] = starts.get(arn, 0) + 1
+            last[arn] = (enabled, status, pending)
+        with shared["lock"]:
+            shared["disabled"].value = len(view["disabled"])
+            shared["gone"].value = len(doomed) - view["doomed_accelerators"]
+            shared["left"].value = view["left"]
+            if view["left"] == 0 and shared["cleared_at"].value == 0.0:
+                shared["cleared_at"].value = now
+            killed_at = shared["killed_at"].value
+        if disabled_at_kill is None and killed_at and began > killed_at:
+            disabled_at_kill = view["disabled"]
+        ready.set()
+        if stop.wait(RESIZE_POLL):
+            break
+    pathlib.Path(out_path).write_text(json.dumps({
+        "faults": faults, "starts": starts, "disabled_at_kill": disabled_at_kill,
+        "polls": polls, "max_gap_s": max_gap,
+    }))
+
+
+class TeardownWatch:
+    """Reads the shared account's state file every ``RESIZE_POLL`` s for
+    the whole teardown, in a process of its own (as ``DuplicateWatch``).
+    ``disabled``, ``gone`` and ``left`` are the latest read's deleted
+    owners' disabled accelerators, accelerators gone and resources
+    left (accelerators, listeners, endpoint groups, records);
+    ``cleared_at`` the first read (monotonic s) with none left.
+    ``check`` raises a fault against the kept Services seen at any
+    read, a second disable of an accelerator, or a gap between reads
+    over ``RESIZE_POLL_BOUND``."""
+
+    def __init__(self, state_path: str, plan: dict, workdir: pathlib.Path):
+        context = multiprocessing.get_context("spawn")
+        self._shared = {
+            "lock": context.Lock(),
+            "disabled": context.Value("i", 0, lock=False),
+            "gone": context.Value("i", 0, lock=False),
+            "left": context.Value("i", -1, lock=False),
+            "cleared_at": context.Value("d", 0.0, lock=False),
+            "killed_at": context.Value("d", 0.0, lock=False),
+        }
+        self._stop, self._ready = context.Event(), context.Event()
+        self._out = workdir / "teardown-watch.json"
+        self._process = context.Process(
+            target=_watch_teardown, name="teardown-watch", daemon=True,
+            args=(state_path, json.dumps(plan), self._shared, self._stop, self._ready,
+                  str(self._out)),
+        )
+        self.result: dict = {}
+
+    def read(self) -> dict:
+        with self._shared["lock"]:
+            return {k: v.value for k, v in self._shared.items() if k != "lock"}
+
+    def killed(self, at: float) -> None:
+        """Mark the kill (monotonic s, after the victim is reaped): the
+        first read that starts after it records the disabled accelerators."""
+        with self._shared["lock"]:
+            self._shared["killed_at"].value = at
+
+    def __enter__(self) -> "TeardownWatch":
+        self._process.start()
+        if not self._ready.wait(PROCESS_DEADLINE):
+            self._process.kill()
+            raise PhaseError("the teardown watch never read the state file")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._process.join(JOIN_TIMEOUT)
+        if self._process.is_alive():
+            self._process.kill()
+            self._process.join(JOIN_TIMEOUT)
+        if self._out.exists():
+            self.result = json.loads(self._out.read_text())
+
+    def check(self) -> None:
+        result = self.result
+        if self._process.exitcode != 0 or not result.get("polls"):
+            raise PhaseError(f"the teardown watch exited {self._process.exitcode}")
+        if result["faults"]:
+            raise PhaseError(f"teardown: false positives {result['faults']}")
+        twice = {arn: n for arn, n in result["starts"].items() if n > 1}
+        if twice:
+            raise PhaseError(f"teardown: accelerators disabled more than once {twice}")
+        if result["max_gap_s"] > RESIZE_POLL_BOUND:
+            raise PhaseError(
+                f"the teardown watch went {result['max_gap_s']} s between reads "
+                f"(bound {RESIZE_POLL_BOUND} s)"
+            )
+
+
+DISABLE_LINE = re.compile(r"Disabling Global Accelerator (\S+)")
+SWEEP_LINE = re.compile(r"gc sweep (\d+): deleted (\d+) accelerators, (\d+) record owners")
+
+
+def teardown_fleet(
+    pkg,
+    package: str,
+    n: int,
+    latency: float,
+    workdir: pathlib.Path,
+    hostname_every: int = TEARDOWN_HOSTNAME_EVERY,
+    victim_shard: int = 0,
+) -> dict:
+    """Teardown and the orphan sweeper over processes
+    (``docs/operations.md:153-233``, and its failure table's "leader
+    killed mid-mutation" row): two ``python -m <package> controller
+    --shard-count 2 --shards-per-replica 2`` replicas with the sweeper on
+    (``TEARDOWN_GC``), one apiserver and the shard phase's
+    flock-arbitrated fake account at ``latency`` s per call, with the
+    hosted zone ``TEARDOWN_ZONE`` and every accelerator settling
+    through ``TEARDOWN_SETTLE`` reads.
+
+    (a) Once each replica holds one shard, ``n`` Services on one NLB are
+    created (hostnames per ``teardown_hostname``) and converge: ``n``
+    complete chains and every TXT+A pair.  (b) The even-numbered half
+    is deleted in one burst while ``TeardownWatch`` reads the account
+    every 0.1 s.  (c) Once a deleted owner's accelerator is disabled
+    and not yet deleted, with at most ``TEARDOWN_KILL_GONE`` of them
+    gone, the holder of shard ``victim_shard`` gets SIGKILL.  (d) The survivor steals
+    its lease one lease duration later; the delete events of the dead
+    replica's keys died with it, so its sweeper must find those orphans
+    from ownership tags and TXT heritage alone.
+
+    Hard bounds (``PhaseError``): at the end exactly the kept half's
+    accelerators remain, each with its ARN from before the deletes and
+    a complete chain, every kept hostname keeps its TXT and A and no
+    deleted owner keeps an accelerator, listener, endpoint group or
+    record; at every watch read every kept Service's accelerator is
+    there, enabled, with its records; orphans of the dead replica's
+    shards were left at the kill, and the survivor's ``/healthz`` gc
+    block counts at least that many deletions; no sweep deletes more
+    than ``--gc-max-deletes``; the last orphan is gone within
+    ``takeover + (grace - 1 + ceil(K / max_deletes) + 1) x interval + 2
+    x settle + TEARDOWN_SLACK_S`` s of the kill (K: orphans left at the
+    steal); no accelerator is disabled twice, neither in the watch's
+    reads nor in the replicas' logs; the fleet's call rate and summed
+    AIMD ceilings within ``SHARD_BUDGET_QPS`` per service at every
+    read; every kept Service ``converged`` on the survivor's
+    ``/debug/explain`` and no journey in flight there within
+    ``AUTOSCALE_SETTLE_S`` s of calm; the survivor exits 0 on SIGTERM.
+    Returns the run's times, counters and final AWS state."""
+    env = shard_env(n, latency, workdir)
+    lbs = [SHARD_LB] + [service_lb(i) for i in range(n) if teardown_hostname(i, hostname_every)]
+    env.update(
+        AGAC_FAKE_LBS=",".join("=".join(lb) for lb in lbs),
+        AGAC_FAKE_ZONES=TEARDOWN_ZONE,
+        AGAC_FAKE_SETTLE=str(TEARDOWN_SETTLE),
+    )
+    state_path = env["AGAC_FAKE_STATE"]
+    gc = TEARDOWN_GC
+    placement = [
+        "--shards-per-replica", "2", "--gc-interval", f"{gc['interval']:g}",
+        "--gc-grace-sweeps", str(gc["grace_sweeps"]), "--gc-max-deletes", str(gc["max_deletes"]),
+    ]
+    shards = {0, 1}
+    names = [make_shard_service(pkg, i).metadata.name for i in range(n)]
+    owner_tag = {i: f"service/default/{name}" for i, name in enumerate(names)}
+    doomed_i = [i for i in range(n) if i % 2 == 0]
+    kept_i = [i for i in range(n) if i % 2 == 1]
+    hosts = {i: f"{h}." for i in range(n) if (h := teardown_hostname(i, hostname_every))}
+    ring = pkg.ring.HashRing(2)
+    shard_of = {i: ring.shard_for_key(f"default/{names[i]}") for i in range(n)}
+    server = pkg.testserver.TestApiServer().start()
+    children: list[Child] = []
+    live = [0, 1]
+    rates_max: dict[str, float] = {}
+    ceilings_max: dict[str, float] = {}
+    sweeps: dict[int, dict[int, dict]] = {0: {}, 1: {}}
+    try:
+        kubeconfig = write_kubeconfig(workdir, server.url)
+        ports = [_free_port() for _ in live]
+        spawned = time.monotonic()
+        for replica, port in enumerate(ports):
+            children.append(Child(
+                f"controller-{replica}",
+                shard_controller_argv(package, kubeconfig, port, 2, placement), env, workdir,
+            ))
+
+        def running() -> list[Child]:
+            return [children[r] for r in live]
+
+        def balanced() -> list[set] | None:
+            try:
+                owned = [
+                    set(_get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"].get("owned", ()))
+                    for r in live
+                ]
+            except OSError:
+                return None
+            return owned if set().union(*owned) == shards and all(len(o) == 1 for o in owned) else None
+
+        start_owned = _wait_for("one shard lease held by each replica", balanced, running(), spawned)
+        lease_s = time.monotonic() - spawned
+        client = pkg.rest.RestClusterClient(server.url)
+        aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
+
+        def record_names() -> set:
+            # the zone is seeded by the replicas' first use of the account
+            zone_id = aws.zone_id_by_name(TEARDOWN_ZONE)
+            return {(r.name, r.type) for r in aws.records_in_zone(zone_id)} if zone_id else set()
+
+        start = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            list(pool.map(
+                lambda i: client.create("Service", make_teardown_service(pkg, i, hostname_every)),
+                range(n),
+            ))
+
+        def converged() -> bool:
+            chains = aws.chain_counts()
+            if max(chains) > n:
+                raise PhaseError(f"teardown: chain counts {chains} exceed {n}: duplicates")
+            have = record_names()
+            return chains == (n, n, n) and all(
+                (h, t) in have for h in hosts.values() for t in ("TXT", "A")
+            )
+
+        _wait_for(f"{n} complete chains and {len(hosts)} TXT+A pairs", converged, running(), start)
+        converge_s = time.monotonic() - start
+        arn_of = {owner: arn for arn, owner in aws.accelerator_owners().items()}
+        if sorted(arn_of) != sorted(owner_tag.values()):
+            raise PhaseError(f"teardown: accelerator owners {sorted(arn_of)} after converging")
+        plan = {
+            "kept": {owner_tag[i]: arn_of[owner_tag[i]] for i in kept_i},
+            "doomed": [owner_tag[i] for i in doomed_i],
+            "kept_hosts": sorted(hosts[i] for i in kept_i if i in hosts),
+            "doomed_hosts": sorted(hosts[i] for i in doomed_i if i in hosts),
+        }
+        doomed_arns = {arn_of[owner_tag[i]]: i for i in doomed_i}
+        pids = {r: child.popen.pid for r, child in enumerate(children)}
+        cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
+        own = os.times()
+        base = {r: scrape_replica(ports[r]) for r in live}
+
+        def left_by_shard() -> dict[int, int]:
+            """The deleted owners' accelerators and hostnames with a
+            record still there, per shard of their keys."""
+            owners = set(aws.accelerator_owners().values())
+            names_left = {name for name, _ in record_names()}
+            out = {0: 0, 1: 0}
+            for i in doomed_i:
+                out[shard_of[i]] += (owner_tag[i] in owners) + (hosts.get(i) in names_left)
+            return out
+
+        last_scrape: dict[int, tuple[float, dict]] = {}
+
+        def read() -> dict[int, dict] | None:
+            """The live replicas as scraped; every read holds the call
+            rate since the last one and the summed AIMD ceilings to the
+            budget, and keeps each sweep's report."""
+            try:
+                now = time.monotonic()
+                scrapes = {r: scrape_replica(ports[r]) for r in live}
+                gcs = {r: _get_json(f"http://127.0.0.1:{ports[r]}/healthz")["gc"] for r in live}
+            except OSError:
+                return None
+            rates: dict[str, float] = {}
+            ceilings: dict[str, float] = {}
+            for r, scrape in scrapes.items():
+                if r in last_scrape and now > last_scrape[r][0]:
+                    then, before = last_scrape[r]
+                    for family, count in scrape["calls"].items():
+                        delta = count - before["calls"].get(family, 0.0)
+                        rates[family] = rates.get(family, 0.0) + delta / (now - then)
+                last_scrape[r] = (now, scrape)
+                for family, ceiling in scrape["ceilings"].items():
+                    ceilings[family] = ceilings.get(family, 0.0) + ceiling
+                for report in gcs[r].get("per_shard", {}).values():
+                    if "sweep" in report:
+                        sweeps[r].setdefault(report["sweep"], report)
+            for family, value in rates.items():
+                rates_max[family] = max(rates_max.get(family, 0.0), value)
+            for family, value in ceilings.items():
+                ceilings_max[family] = max(ceilings_max.get(family, 0.0), value)
+            if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*rates.values(), *ceilings.values()]):
+                raise PhaseError(
+                    f"teardown: call rates {rates} or summed AIMD ceilings {ceilings} exceed "
+                    f"{SHARD_BUDGET_QPS}/s per service"
+                )
+            return {r: {**scrapes[r], "gc": gcs[r]} for r in live}
+
+        read()
+        with TeardownWatch(state_path, plan, workdir) as watch:
+            # (b) the burst of deletes
+            deleted_at = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+                list(pool.map(lambda i: client.delete("Service", "default", names[i]), doomed_i))
+            burst_s = time.monotonic() - deleted_at
+            # (c) the kill, mid-teardown: the watch is polled alone here, so
+            # the kill lands within a read of the first disable
+            while True:
+                for child in running():
+                    child.check_alive()
+                seen = watch.read()
+                if seen["gone"] > TEARDOWN_KILL_GONE * len(doomed_i):
+                    raise PhaseError(
+                        f"teardown: {seen['gone']} of {len(doomed_i)} accelerators gone before "
+                        f"one was seen disabled (watch {seen})"
+                    )
+                if seen["disabled"] >= 1:
+                    break
+                if time.monotonic() - deleted_at > PROCESS_DEADLINE:
+                    raise PhaseError(f"teardown: no accelerator disabled (watch {seen})")
+                time.sleep(0.02)
+            owners = {r: _get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"]["owned"] for r in live}
+            (victim,) = [r for r in live if victim_shard in owners[r]]
+            victim_scrape = scrape_replica(ports[victim])
+            cpu[victim] += cpu_seconds(pids[victim])
+            children[victim].popen.send_signal(signal.SIGKILL)
+            children[victim].popen.wait(timeout=EXIT_DEADLINE)
+            killed_at = time.monotonic()
+            watch.killed(killed_at)
+            live.remove(victim)
+            (survivor,) = live
+            left = left_by_shard()
+            victim_shards = sorted(owners[victim])
+            kill = {
+                "victim": victim,
+                "owned": victim_shards,
+                "at_s": killed_at - deleted_at,
+                "watch": seen,
+                "left_by_shard": left,
+                "victim_orphans": sum(left[s] for s in victim_shards),
+            }
+            if not kill["victim_orphans"]:
+                raise PhaseError(f"teardown: no orphan of shards {victim_shards} at the kill: {kill}")
+            # (d) the steal and the mop-up
+            while True:
+                for child in running():
+                    child.check_alive()
+                now = time.monotonic()
+                if now - killed_at > PROCESS_DEADLINE:
+                    raise PhaseError(f"teardown: orphans left {watch.read()} after {now - killed_at} s")
+                views = read()
+                seen = watch.read()
+                if "takeover_s" not in kill:
+                    if views is not None and set(views[survivor]["sharding"]["owned"]) == shards:
+                        kill["takeover_s"] = now - killed_at
+                        kill["orphans_at_steal"] = sum(left_by_shard().values())
+                        kill["sweeps_at_steal"] = views[survivor]["gc"]["sweeps_total"]
+                        steal_ops = dict(views[survivor]["ops"])
+                elif seen["cleared_at"]:
+                    break
+                time.sleep(TEARDOWN_READ)
+            cleared_at = watch.read()["cleared_at"]
+            mop_up_s = cleared_at - killed_at
+            views = _wait_for("a read of the survivor", read, running(), time.monotonic())
+            sweeps_to_mop = views[survivor]["gc"]["sweeps_total"] - kill["sweeps_at_steal"]
+            ops_to_mop = {
+                op: int(count - steal_ops.get(op, 0.0))
+                for op, count in sorted(views[survivor]["ops"].items())
+                if count > steal_ops.get(op, 0.0)
+            }
+            bound_s = kill["takeover_s"] + (
+                gc["grace_sweeps"] - 1 + -(-kill["orphans_at_steal"] // gc["max_deletes"]) + 1
+            ) * gc["interval"] + 2 * TEARDOWN_SETTLE + TEARDOWN_SLACK_S
+            if mop_up_s > bound_s:
+                raise PhaseError(
+                    f"teardown: the last orphan went {mop_up_s} s after the kill (bound {bound_s} s: "
+                    f"takeover {kill['takeover_s']} s, {kill['orphans_at_steal']} orphans at the steal)"
+                )
+            pending = {f"default/{names[i]}" for i in kept_i}
+
+            def explained() -> bool:
+                for key in sorted(pending):
+                    answer = json.loads(_http(f"http://127.0.0.1:{ports[survivor]}/debug/explain?key={key}"))
+                    if answer["verdict"] == "converged":
+                        pending.discard(key)
+                return not pending
+
+            _wait_for("every kept Service converged on the survivor", explained, running(), cleared_at)
+            calm = time.monotonic()
+
+            def idle() -> dict | None:
+                views = read()
+                if views is None or replica_journeys(views[survivor]["metrics"]) != (0, 0.0):
+                    if time.monotonic() - calm > AUTOSCALE_SETTLE_S:
+                        raise PhaseError(
+                            f"teardown: journeys in flight on the survivor "
+                            f"{replica_journeys(views[survivor]['metrics']) if views else None} "
+                            f"{time.monotonic() - calm} s after calm"
+                        )
+                    return None
+                return views
+
+            final = _wait_for("no journey in flight on the survivor", idle, running(), calm)
+            settle_s = time.monotonic() - calm
+            elapsed = time.monotonic() - deleted_at
+            time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
+        watch.check()
+        # the end state
+        half = len(kept_i)
+        snap_owners = aws.accelerator_owners()
+        if aws.chain_counts() != (half, half, half) or sorted(snap_owners) != sorted(plan["kept"].values()):
+            raise PhaseError(
+                f"teardown: chain counts {aws.chain_counts()}, owners {sorted(snap_owners.values())} "
+                f"at the end (want the {half} kept Services' accelerators)"
+            )
+        have = record_names()
+        want = {(hosts[i], t) for i in kept_i if i in hosts for t in ("TXT", "A")}
+        if have != want:
+            raise PhaseError(f"teardown: records {sorted(have ^ want)} differ from the kept pairs")
+        # disables, as the replicas logged them: once per accelerator per
+        # process, and never by the survivor for one the dead replica
+        # disabled and committed (seen disabled at the watch's first read
+        # after the kill)
+        logged = {r: DISABLE_LINE.findall(children[r].stderr()) for r in (0, 1)}
+        repeated = {
+            r: sorted({a for a in arns if arns.count(a) > 1}) for r, arns in logged.items()
+        }
+        again = sorted(
+            set(logged[survivor]) & set(logged[kill["victim"]])
+            & set(watch.result["disabled_at_kill"] or ())
+        )
+        if any(repeated.values()) or again:
+            raise PhaseError(
+                f"teardown: second disables: repeated in one log {repeated}, by the survivor "
+                f"after the dead replica's {again}"
+            )
+        over = []
+        for r in (0, 1):
+            for match in SWEEP_LINE.finditer(children[r].stderr()):
+                if int(match[2]) + int(match[3]) > gc["max_deletes"]:
+                    over.append((r, match[0]))
+        gc_final = final[survivor]["gc"]
+        if over or gc_final["deleted_total"] < kill["victim_orphans"]:
+            raise PhaseError(
+                f"teardown: sweeps over budget {over}; the survivor's sweeper deleted "
+                f"{gc_final['deleted_total']} for {kill['victim_orphans']} orphans of the dead "
+                f"replica's shards"
+            )
+        calls: dict[str, float] = {}
+        for r, scrape in ((kill["victim"], victim_scrape), (survivor, final[survivor])):
+            for family, count in scrape["calls"].items():
+                calls[family] = calls.get(family, 0.0) + count - base[r]["calls"].get(family, 0.0)
+        cpu[survivor] += cpu_seconds(pids[survivor])
+        own_cpu = sum(os.times()[:2]) - sum(own[:2])
+        exit_status = children[survivor].terminate()
+    finally:
+        for child in children:
+            child.kill()
+        server.stop()
+    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
+    if exit_status != 0 or tracebacks:
+        raise PhaseError(f"teardown: the survivor exited {exit_status}, tracebacks from {tracebacks}")
+    counters = {
+        k: 0 for k in ("candidates", "grace_held", "deleted", "adopted", "budget_deferred",
+                       "skipped_no_shards")
+    }
+    for reports in sweeps.values():
+        for report in reports.values():
+            for key in counters:
+                value = report.get(key, 0)
+                counters[key] += sum(value.values()) if isinstance(value, dict) else int(value)
+    before_kill = kill["watch"]["gone"]
+    return {
+        "services": n,
+        "deleted": len(doomed_i),
+        "hostnames": {"kept": len(plan["kept_hosts"]), "deleted": len(plan["doomed_hosts"])},
+        "latency_s": latency,
+        "lease_s": lease_s,
+        "start_owned": [sorted(o) for o in start_owned],
+        "converge_s": converge_s,
+        "burst_s": burst_s,
+        "reactive_teardowns_per_s": before_kill / kill["at_s"],
+        "kill": kill,
+        "mop_up_s": mop_up_s,
+        "mop_up_bound_s": bound_s,
+        "sweeps_to_mop_up": sweeps_to_mop,
+        "survivor_calls_to_mop_up": ops_to_mop,
+        "journeys_settle_s": settle_s,
+        "gc_counters": counters,
+        "gc_sweeps_seen": {r: len(reports) for r, reports in sweeps.items()},
+        "gc_survivor": {
+            k: gc_final[k] for k in ("sweeps_total", "deleted_total", "adopted_total", "pending")
+        },
+        "disables": {
+            "watch_starts": sum(watch.result["starts"].get(a, 0) for a in doomed_arns),
+            "logged": {r: len(arns) for r, arns in logged.items()},
+            "disabled_at_kill": len(watch.result["disabled_at_kill"] or ()),
+        },
+        "aws_calls": {family: int(count) for family, count in sorted(calls.items())},
+        "calls_per_chain": sum(calls.values()) / len(doomed_i),
+        "call_rates_max": dict(sorted(rates_max.items())),
+        "aimd_ceiling_sums_max": dict(sorted(ceilings_max.items())),
+        "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"]},
+        "elapsed_s": elapsed,
+        "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
+        "exit": exit_status,
+        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
+        "aws_state": pkg.fake_backend.FileBackedFakeAWSBackend(state_path).snapshot_state(),
     }
 
 
@@ -2589,6 +3244,46 @@ def phase_autoscale(card: str) -> dict:
     )
     print("autoscale " + json.dumps(runs), flush=True)
     return runs
+
+
+def phase_teardown(n: int, card: str) -> dict:
+    """Half a sharded fleet deleted, the holder of shard 0 killed
+    mid-teardown, the survivor's sweeper mopping up; ``teardown_fleet``
+    holds the run to its hard bounds."""
+    pkg = load(PORT)
+    start = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-teardown-") as workdir:
+        run = teardown_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
+    del run["aws_state"]
+    run["wall_s"] = time.monotonic() - start
+    kill, gc = run["kill"], TEARDOWN_GC
+    print(
+        f"teardown: 2 x python -m {PORT} controller --shard-count 2 --shards-per-replica 2 "
+        f"--gc-interval {gc['interval']:g} --gc-grace-sweeps {gc['grace_sweeps']} "
+        f"--gc-max-deletes {gc['max_deletes']} ({SHARD_WORKERS} workers, {SHARD_LATENCY} s fake "
+        f"AWS latency, accelerators settling through {TEARDOWN_SETTLE} reads), {n} Services "
+        f"({run['hostnames']}) converged {run['converge_s']} s after the first create; "
+        f"{run['deleted']} deleted in a {run['burst_s']} s burst; SIGKILL to replica "
+        f"{kill['victim']} (shards {kill['owned']}) {kill['at_s']} s after the burst with "
+        f"{kill['watch']['gone']} accelerators gone and {kill['watch']['disabled']} disabled "
+        f"(reactive teardown {run['reactive_teardowns_per_s']} chains/s), orphans left per shard "
+        f"{kill['left_by_shard']}; the survivor held both shards {kill['takeover_s']} s after "
+        f"the kill with {kill['orphans_at_steal']} orphans left; the last orphan went "
+        f"{run['mop_up_s']} s after the kill (bound {run['mop_up_bound_s']} s = takeover + "
+        f"(grace - 1 + ceil(K / budget) + 1) x interval + 2 x settle + {TEARDOWN_SLACK_S:g} s) "
+        f"in {run['sweeps_to_mop_up']} sweeps; gc counters over the sweeps read "
+        f"{run['gc_counters']} (sweeps read {run['gc_sweeps_seen']}), the survivor's gc block "
+        f"{run['gc_survivor']}; disables {run['disables']}; {run['calls_per_chain']} AWS calls "
+        f"per torn-down chain {run['aws_calls']}; call rates at most {run['call_rates_max']} /s, "
+        f"AIMD ceiling sums at most {run['aimd_ceiling_sums_max']} /s (budget "
+        f"{SHARD_BUDGET_QPS}); journeys 0 on the survivor {run['journeys_settle_s']} s after "
+        f"calm; watch {run['watch']['polls']} reads, at most {run['watch']['max_gap_s']} s "
+        f"apart; {run['host_cores_busy']} of {os.cpu_count()} host cores busy; phase "
+        f"{run['wall_s']} s (host-bound, the card is idle in this phase) on {card}",
+        flush=True,
+    )
+    print("teardown " + json.dumps(run), flush=True)
+    return run
 
 
 def sim_replay(pkg, card: str) -> list[dict]:
@@ -3045,6 +3740,7 @@ def main(argv=None) -> int:
         phase_shard(SHARD_SERVICES, card)
         phase_resize(SHARD_SERVICES, card)
         phase_autoscale(card)
+        phase_teardown(SHARD_SERVICES, card)
         phase_sim(args.sim_services, card)
         phase_analysis(args.services, card)
         phase_graft(torch, args.seed, card)

@@ -8,8 +8,10 @@
    docstrings are shorter, so its lines differ; the port's extra module,
    ``graft_entry.py``, holds no lock, no shared state and no thread, so
    it adds nothing to any block.  The functions the port adds to fix a
-   fault the reference keeps (``PORT_ONLY_FUNCTIONS``) enlarge the
-   confinement table's call closures, and by nothing else.
+   fault the reference keeps (``PORT_ONLY_FUNCTIONS``) are taken out of
+   the port's program first: what they reach (the sweeper's teardown
+   workers reach the whole reconcile loop) is the port's deliberate
+   difference, and the rest must be the reference's.
 2. The rules and analyses scoped to the package root (``unseamed-clock``,
    ``cross-boundary-capture``, ``untapped-external-input``, the census's
    single-threaded modules, the thread-sanctioned modules) give the
@@ -36,11 +38,13 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # functions of the port with no counterpart in the reference, named as
-# the reference would name them: the drain fence of the live resize,
-# and the release of a replica's journeys of keys it stops serving, the
-# quota slice of a drained dropped shard and the autoscaler's fleet-wide
-# cooldowns (ROADMAP.md Queue 3), which the worker closures reach
-# through the shard membership and the autoscaler
+# the reference would name them (ROADMAP.md Queue 3): the drain fence of
+# the live resize; the release of a replica's journeys of keys it stops
+# serving, the quota slice of a drained dropped shard and the
+# autoscaler's fleet-wide cooldowns; the sweeper's teardown workers,
+# the disable's discovery refresh, the durable account's cursor pages,
+# the adoption's single read-plane drop that keeps known tags, and the
+# per-shard report store
 PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.sharding.membership::ShardFilter.inflight",
     "agac_tpu.sharding.membership::ShardMembership._adopting",
@@ -50,6 +54,26 @@ PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.observability.journey::JourneyTracker.release",
     "agac_tpu.autoscaler.policy::ScalePolicy._observe_epoch",
     "agac_tpu.autoscaler.policy::ScalePolicy.note_executed",
+    "agac_tpu.controllers.garbagecollector::OrphanTeardown.__init__",
+    "agac_tpu.controllers.garbagecollector::OrphanTeardown.tearing_down",
+    "agac_tpu.controllers.garbagecollector::OrphanTeardown.hand_over",
+    "agac_tpu.controllers.garbagecollector::OrphanTeardown.start_workers",
+    "agac_tpu.controllers.garbagecollector::OrphanTeardown.stop_workers",
+    "agac_tpu.controllers.garbagecollector::_owner_returned",
+    "agac_tpu.controllers.garbagecollector::GarbageCollector._owner_object",
+    "agac_tpu.controllers.garbagecollector::GarbageCollector._tear_down_owner",
+    "agac_tpu.controllers.garbagecollector::GarbageCollector._tear_down_accelerators",
+    "agac_tpu.manager::Manager._orphan_teardown",
+    "agac_tpu.cloudprovider.aws.cache::DiscoveryCache.refresh",
+    "agac_tpu.cloudprovider.aws.cache::DiscoveryCache.invalidate_keeping_tags",
+    "agac_tpu.cloudprovider.aws.cache::DiscoveryCache._known_tags",
+    "agac_tpu.cloudprovider.aws.cache::DiscoveryCache._forget_kept_tags",
+    "agac_tpu.cloudprovider.aws.fake_backend::FileBackedFakeAWSBackend.list_accelerators",
+    "agac_tpu.cloudprovider.aws.factory::adoption_hooks",
+    "agac_tpu.cloudprovider.aws.factory::adoption_hooks.adoption",
+    "agac_tpu.cloudprovider.aws.factory::adoption_hooks.resync",
+    "agac_tpu.sharding.reports::store_shard_report",
+    "agac_tpu.sharding.reports::_token_shards",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})
@@ -79,15 +103,33 @@ def _positionless(obj, package: str):
 @pytest.fixture(scope="module")
 def analysed():
     """Each package's program, findings and blocks, built by its own
-    analyses over its own tree."""
+    analyses over its own tree; the port's without
+    ``PORT_ONLY_FUNCTIONS``."""
     out = {}
     for package in PACKAGES:
         program_mod = _analysis(package, "program")
         rules = program_mod._load_analyses()
         program = program_mod.Program.build([REPO / package], program_mod.ParseCache())
+        if package != "agac_tpu":
+            _take_out(program, {f.replace("agac_tpu", package, 1) for f in PORT_ONLY_FUNCTIONS})
         findings, blocks = program_mod.run_analyses(program, rules)
         out[package] = (program, findings, blocks)
     return out
+
+
+def _take_out(program, fqns: set[str]) -> None:
+    """Remove the functions ``fqns`` from ``program``: a call of one
+    resolves to nothing, as in a tree without it."""
+    for fqn in fqns:
+        finfo = program.functions.pop(fqn)
+        program.by_name[finfo.name].remove(fqn)
+        scopes = [finfo.module.functions]
+        if finfo.class_name is not None:
+            scopes.append(finfo.module.classes[finfo.class_name].methods)
+        for scope in scopes:
+            for key in [k for k, v in scope.items() if v is finfo]:
+                del scope[key]
+    program._callees.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -95,42 +137,11 @@ def analysed():
 # ---------------------------------------------------------------------------
 
 
-def _stage_closures(package: str, program) -> dict[str, set[str]]:
-    """Each confinement stage's call closure, as ``build_confinement``
-    computes it, named as the reference names its functions."""
-    confinement = _analysis(package, "confinement")
-    closures = {}
-    for stage, fqns in confinement.stage_entry_points(program).items():
-        closure = set(fqns)
-        for fqn in fqns:
-            closure |= program.transitive_callees(fqn, fallback=True)
-        closures[stage] = {_positionless(fqn, package) for fqn in closure}
-    return closures
-
-
-def _without_port_only_functions(block: dict, closures: dict[str, set[str]]) -> dict:
-    """The port's confinement block with ``PORT_ONLY_FUNCTIONS`` taken
-    out of its closure sizes and worker scope."""
-    block = json.loads(json.dumps(block))
-    for stage, entry in block["stages"].items():
-        entry["closure_size"] -= len(closures.get(stage, set()) & PORT_ONLY_FUNCTIONS)
-    extra = set().union(*closures.values()) & PORT_ONLY_FUNCTIONS
-    block["worker_scope"] -= len(extra)
-    return block
-
-
 @pytest.mark.parametrize("analysis", ["lock-order", "census", "determinism", "confinement"])
 def test_program_analysis_blocks_are_equal(analysed, analysis):
     ref = _positionless(analysed["agac_tpu"][2][analysis], "agac_tpu")
     port = _positionless(analysed["agac_tpu_torch"][2][analysis], "agac_tpu_torch")
     assert ref, analysis
-    if analysis == "confinement":
-        closures = {p: _stage_closures(p, analysed[p][0]) for p in PACKAGES}
-        for stage, ref_closure in closures["agac_tpu"].items():
-            port_closure = closures["agac_tpu_torch"][stage]
-            assert ref_closure <= port_closure, stage
-            assert port_closure - ref_closure <= PORT_ONLY_FUNCTIONS, stage
-        port = _without_port_only_functions(port, closures["agac_tpu_torch"])
     differing = sorted(k for k in set(ref) | set(port) if ref.get(k) != port.get(k))
     assert differing == []
 
