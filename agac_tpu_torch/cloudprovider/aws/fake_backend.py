@@ -166,6 +166,8 @@ API_OPS = frozenset(
 _MUTATING_PREFIXES = (
     "create_", "update_", "delete_", "add_", "remove_", "tag_", "change_",
 )
+# the reads that count toward an accelerator's settle (``_settle``)
+_SETTLING_READS = frozenset({"describe_accelerator", "list_accelerators"})
 
 
 class SimulatedCrash(BaseException):
@@ -1371,11 +1373,25 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
     # -- the API-op seam (installed via _persist_hook) ------------------
     def _persisted(self, name: str, call):
         mutating = name.startswith(_MUTATING_PREFIXES)
+        settling = name in _SETTLING_READS
 
         def synced(*args, **kwargs):
             if not mutating:
                 self._reload_if_changed()
-                return call(*args, **kwargs)
+                if not (settling and self._settling):
+                    return call(*args, **kwargs)
+                # a read that counts toward a settle changes shared
+                # state: counted in memory alone, the next reload of
+                # another process's write would put the file's count
+                # back, and with two writers nothing would settle.  So
+                # it reloads, counts and saves under the flock
+                with self._interprocess_write_lock():
+                    self._reload_if_changed(force=True)
+                    before = self._settle_counts()
+                    result = call(*args, **kwargs)
+                    if self._settle_counts() != before:
+                        self._save()
+                return result
             # serialize reload → apply → save across processes: the
             # state file becomes an op log, never a lost update.  The
             # reload is FORCED, not stamp-gated: stat stamps are not
@@ -1390,6 +1406,14 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
             return result
 
         return synced
+
+    def _settle_counts(self) -> tuple:
+        """The describes each settling accelerator still waits for."""
+        with self._lock:
+            return tuple(
+                (arn, self._accelerators[arn].pending_describes)
+                for arn in self._settling if arn in self._accelerators
+            )
 
     # -- test helpers stay coherent across processes too ----------------
     def add_load_balancer(self, *args, **kwargs):

@@ -276,18 +276,12 @@ class RestClusterClient(ClusterClient):
     # watch stream tuning: the server closes the stream politely after
     # WATCH_SERVER_TIMEOUT (a clean relist boundary); the short socket
     # timeout is only a stop()-polling interval — an idle read timeout
-    # resumes the same stream, so quiet clusters do NOT trigger
+    # resumes the watch, so quiet clusters do NOT trigger
     # relist/resync storms.
     WATCH_SERVER_TIMEOUT = 240
     WATCH_POLL_INTERVAL = 5.0
 
-    def watch(
-        self, kind: str, resource_version: str, stop: Callable[[], bool]
-    ) -> Iterator[WatchEvent]:
-        """One watch stream.  A normally ended stream returns (the
-        informer relists and re-watches); hard failures — connect
-        errors, non-2xx — RAISE so the informer's error path applies
-        its backoff instead of relisting in a tight loop."""
+    def _open_watch(self, kind: str, resource_version: str):
         query = urllib.parse.urlencode(
             {
                 "watch": "true",
@@ -301,6 +295,19 @@ class RestClusterClient(ClusterClient):
         )
         if status >= 300:
             raise ClusterAPIError(status, f"watch {kind}")
+        return stream
+
+    def watch(
+        self, kind: str, resource_version: str, stop: Callable[[], bool]
+    ) -> Iterator[WatchEvent]:
+        """One watch stream.  A normally ended stream returns (the
+        informer relists and re-watches); hard failures — connect
+        errors, non-2xx — RAISE so the informer's error path applies
+        its backoff instead of relisting in a tight loop."""
+        stream = self._open_watch(kind, resource_version)
+        # the resourceVersion of the last event delivered: a stream the
+        # socket layer gave up on resumes from it
+        delivered = resource_version or "0"
         try:
             while not stop():
                 try:
@@ -311,6 +318,15 @@ class RestClusterClient(ClusterClient):
                     if "timed out" in str(err).lower():
                         continue
                     raise
+                except OSError as err:
+                    if "timed out object" not in str(err):
+                        raise
+                    # CPython's socket reader refuses every read after
+                    # a timeout: watch again from the last event
+                    # delivered, as a reflector does, not relist
+                    stream.close()
+                    stream = self._open_watch(kind, delivered)
+                    continue
                 if not line:
                     return  # server closed; informer relists
                 if not line.strip():
@@ -331,6 +347,7 @@ class RestClusterClient(ClusterClient):
                     klog.errorf("watch %s: %r", kind, payload.get("object"))
                     return
                 obj = self._decode(kind, payload.get("object") or {})
+                delivered = obj.metadata.resource_version or delivered
                 yield WatchEvent(event_type, obj)
         except (urllib.error.URLError, ConnectionError, OSError) as err:
             klog.v(4).infof("watch %s: stream ended: %s", kind, err)

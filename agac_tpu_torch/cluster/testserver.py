@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import itertools
 import json
+import select
+import socket
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -322,9 +324,19 @@ class _Handler(BaseHTTPRequestHandler):
         def broken() -> bool:
             return getattr(self.server, "watch_generation", 0) != start_generation
 
+        def gone() -> bool:
+            # the client closed the stream (a reflector that watches
+            # again, a process that died): no event would tell this
+            # thread, which would poll the store until the deadline
+            try:
+                readable, _, _ = select.select([self.connection], [], [], 0)
+                return bool(readable) and not self.connection.recv(1, socket.MSG_PEEK)
+            except OSError:
+                return True
+
         def stop() -> bool:
             return (
-                stopped.is_set() or time.monotonic() >= deadline or broken()
+                stopped.is_set() or time.monotonic() >= deadline or broken() or gone()
             )
 
         self._send(200, b"", chunked=True)

@@ -21,7 +21,8 @@ Safety argument the exclusive-ownership oracle leans on:
   next enqueue can consult the filter;
 - a replica over capacity releases the lease only AFTER dropping the
   shard locally and after its workers' reconciles of the shard's keys
-  have returned, so the next claimant can never overlap with it.
+  have returned, and keeps renewing it until then, so the next
+  claimant can never overlap with it.
 
 Elastic resharding makes ``shard_count`` a LIVE target
 instead of a boot constant.  The fleet coordinates through ONE extra
@@ -746,6 +747,7 @@ class ShardMembership:
                 )
         if len(owned) < held:
             self._released()
+        self._renew_releasing(client)
         self._flush_releases(client)
         if probe_due:
             changed |= self._maybe_shed(client, owned)
@@ -920,6 +922,23 @@ class ShardMembership:
                 self._release_pending.discard(shard)
                 self._electors[shard].release(client)
                 self._released()
+
+    def _renew_releasing(self, client) -> None:
+        """Renew every lease dropped locally whose release waits on a
+        reconcile of its keys in flight here: the lease serves no key
+        any more, but a lapse would let a peer claim it, and reconcile
+        the same key, while that reconcile still runs."""
+        for shard in sorted(self._release_pending - self._owned):
+            if not self.filter.inflight(self.ring, shard):
+                continue  # released by the flush that follows
+            acquired, holder = self._electors[shard].try_acquire_or_renew(client)
+            if not acquired:
+                self._release_pending.discard(shard)
+                self._observe(shard, holder or None)
+                klog.warningf(
+                    "shard %d lease lost to %s while its release waited on "
+                    "reconciles in flight", shard, holder or "<unheld>",
+                )
 
     def _adopting(self) -> None:
         if self.on_adopt is not None:
@@ -1360,7 +1379,9 @@ class ShardMembership:
     def release_all(self, client) -> None:
         """Clean shutdown: drop every shard locally FIRST, then release
         the leases so successors claim them without waiting out the
-        lease duration."""
+        lease duration.  Shutdown stays bounded: a lease whose keys a
+        worker still reconciles after the renew deadline is renewed
+        once and left to expire, not released."""
         owned = sorted(self._owned)
         self._publish(set())
         # the successor claims at once: let the reconciles that passed
@@ -1373,7 +1394,18 @@ class ShardMembership:
         for shard in sorted(set(owned) | self._release_pending):
             elector = self._electors[shard]
             elector.set_leading(False)
-            elector.release(client)
+            if self.filter.inflight(self.ring, shard):
+                # a reconcile of its keys outlived the wait: renew the
+                # lease once more and let it expire, so no successor
+                # claims the key for one lease duration, rather than
+                # hand it over mid-mutation
+                elector.try_acquire_or_renew(client)
+                klog.warningf(
+                    "shard %d: reconciles still in flight after %.1fs, "
+                    "leaving its lease to expire", shard, waited,
+                )
+            else:
+                elector.release(client)
         self._release_pending.clear()
         if owned:
             self._released()

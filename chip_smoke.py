@@ -103,7 +103,31 @@ Phases, in order; any failure exits non-zero before the last line:
    interval + 2 x settle + 15 s of the kill, the 400/s budget at every
    read, ``converged`` for every kept Service, no journey left in flight
    and a clean exit.  Host code: the card is idle in this phase.
-8. ``sim``: the port's virtual-time runtime, which runs the whole
+8. ``drift``: drift resync over processes, with the binding controller
+   in the fleet, on the ``teardown`` phase's fleet settings.  Two
+   ``python -m agac_tpu_torch controller --shard-count 2
+   --shards-per-replica 2 --drift-resync-period 10`` replicas (the
+   discovery snapshot's TTL at the period) converge ``bench.py``'s mixed
+   fleet: 200 Services, 20 ALB Ingresses and 20 EndpointGroupBindings,
+   each binding putting a Service's NLB into an out-of-band chain this
+   script built first.  One tick is timed on each replica, with its
+   reads.  Then, at once and in both shards, an accelerator is
+   disabled, a listener deleted, a binding's endpoint weight edited and
+   another's endpoint removed, an A record repointed and a TXT record
+   deleted; the holder of shard 0 gets SIGKILL as soon as the first of
+   its shard's tampers is repaired, and the survivor must take its
+   shard over and repair the rest.  A watch reads the account every
+   0.1 s.  The phase requires each repair within the period + its
+   freshness window + one tick (+ the takeover for shard 0), tampers of
+   shard 0 still open at the kill, each tick's reads within the
+   runbook's per-object ceilings scaled to the fleet, no duplicate
+   accelerator, no reconcile logged for a key the replica's shards did
+   not own, the 400/s budget at every read, no journey left in flight,
+   the bindings' finalizers removing their endpoints and nothing else,
+   exactly the fleet's chains and pairs at the end and a clean exit.
+   Host code: the card is idle in this phase.
+9. ``sim`` (in a process of its own, beside ``drift`` and
+   ``analysis``): the port's virtual-time runtime, which runs the whole
    Manager on one thread and folds every dispatch into a SHA-256
    event-trace hash.  ``replay`` replays every checked-in incident
    capture (``tests/captures/*.jsonl``) and requires a byte-identical
@@ -123,7 +147,7 @@ Phases, in order; any failure exits non-zero before the last line:
    of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
    hash.  The pins are what the reference package computes for the
    same runs.  Host code: the card is idle in this phase.
-9. ``analysis``: the port's static analyses over its own tree, then
+10. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
    determinism, confinement) must pass their gate with the port's
@@ -133,19 +157,23 @@ Phases, in order; any failure exits non-zero before the last line:
    watchdog's observed lock edges and stage-tagged writes must fall
    inside the static lock graph and footprint table.  Host code: the
    card is idle in this phase.
-10. ``graft``: the torch twin of the MLP, forward and
+11. ``graft``: the torch twin of the MLP, forward and
    one train step on ``cuda``, held against the same weights run on
    the CPU in float32 with bf16 rounding at the same points; then the
    JAX program's multi-chip dry run, one train step over a 4 x 2 data x
    model mesh of 8 gloo processes on the CPU, held to the unsharded
    step.
 
-The port has no hand-written kernel (the reference holds no Pallas
-kernel), so the kernel line lists none.  The last line is
-``{"ok": true, "device": {...}}``.
+``shard``, ``resize``, ``autoscale``, ``teardown`` and ``drift`` also
+print the stage accountant's per-stage table, folded from the
+replicas' ``/metrics`` as the phase last scraped them.
+
+The kernel line lists none: the reference holds no Pallas kernel, so
+the port has no hand-written kernel to hold against a plain version.
+The last line is ``{"ok": true, "device": {...}}``.
 
 The fleet helpers, ``converge``, ``process``, ``shard_fleet``,
-``resize_fleet``, ``autoscale_fleet``, ``teardown_fleet``, ``rollout`` and
+``resize_fleet``, ``autoscale_fleet``, ``teardown_fleet``, ``drift_fleet``, ``rollout`` and
 ``shard_soak`` take the package as a parameter so that
 tests can run the same fleet through the reference; this script itself
 only ever loads the port.
@@ -304,6 +332,50 @@ TEARDOWN_SLACK_S = 15.0
 # seconds between the phase's reads of the replicas
 TEARDOWN_READ = 0.5
 
+# the drift phase: drift resync (docs/operations.md:560-640) over processes,
+# with the binding controller in the fleet, on the teardown phase's fleet
+# settings.  Every replica re-verifies its keys every DRIFT_PERIOD s (cut
+# from the runbook's 300 s floor; at least twice one tick's wall time,
+# docs/operations.md:601), with the discovery snapshot's TTL at the same
+# period (docs/operations.md:63, 596)
+DRIFT_PERIOD = 12.0
+# the out-of-band tampers applied in each shard at once, each with the
+# freshness window it can hide behind (docs/operations.md:612-621): the
+# verify window (AGAC_TOPOLOGY_VERIFY_TTL) for a deleted listener and a
+# binding's removed endpoint or edited weight, the record-set window
+# (AGAC_RECORDSET_CACHE_TTL) for record edits, None for one discovery TTL
+DRIFT_WINDOWS = {
+    "disable": None,
+    "listener": 15.0,
+    "weight": 15.0,
+    "endpoint": 15.0,
+    "record-edit": 15.0,
+    "record-delete": 15.0,
+}
+DRIFT_TAMPERS = tuple(DRIFT_WINDOWS)
+DRIFT_WEIGHT = 7  # the weight the weight tamper sets (the bindings ask 100)
+# one tick's reads over the runbook's fleet (1,000 Services + 100 Ingresses
+# + 100 bindings in 10 zones, docs/operations.md:580-588), by the operation
+# label of agac_aws_api_calls_total, each with the part of the fleet it
+# scales with; a read outside the table has a ceiling of 0, but for the
+# snapshot refreshes that ride on a tick: one ListAccelerators drain and
+# one ListTagsForResource per accelerator per discovery TTL
+# (docs/operations.md:596-598) and one ListHostedZones drain per zone TTL
+# (docs/operations.md:64)
+DRIFT_READS = {
+    "list_listeners": (0, "accelerators"),
+    "list_tags_for_resource": (0, "accelerators"),
+    "list_endpoint_groups": (1100, "accelerators"),
+    "describe_endpoint_group": (100, "bindings"),
+    "describe_load_balancers": (202, "objects"),
+    "list_resource_record_sets": (40, "zones"),
+}
+DRIFT_TABLE_FLEET = {"accelerators": 1100, "bindings": 100, "objects": 1200, "zones": 10}
+# seconds between the phase's reads of the replicas while it times a tick
+DRIFT_TICK_READ = 0.2
+# the on-demand sampling-profiler capture from the survivor, s
+DRIFT_PROFILE_S = 5.0
+
 # the sim phase
 CAPTURES = REPO / "tests" / "captures"
 SIM_SERVICES = 10_000  # the sim's documented scale
@@ -399,6 +471,8 @@ def load(package: str = PORT) -> types.SimpleNamespace:
         ring=mod("sharding.ring"),
         sharding=mod("sharding"),
         slo=mod("observability.slo"),
+        profile=mod("observability.profile"),
+        awstypes=mod("cloudprovider.aws.types"),
     )
 
 
@@ -489,6 +563,13 @@ def prepare_aws(pkg, aws, n: int, n_ing: int, n_egb: int) -> tuple[list, list[st
     for j in range(n_ing):
         aws.add_load_balancer(alb(j)[0], REGION, alb(j)[1])
     zones = [aws.add_hosted_zone(f"z{k}.bench.example.com") for k in range(N_ZONES)]
+    return zones, external_chains(pkg, aws, n_egb)
+
+
+def external_chains(pkg, aws, n_egb: int) -> list[str]:
+    """Build ``n_egb`` out-of-band accelerator chains, each behind a load
+    balancer of its own, with the cluster tag ``external`` (so the
+    controllers never touch them); their endpoint groups' ARNs."""
     driver = pkg.aws.AWSDriver(aws, aws, aws)
     o = pkg.objects
     group_arns = []
@@ -508,7 +589,7 @@ def prepare_aws(pkg, aws, n: int, n_ing: int, n_egb: int) -> tuple[list, list[st
         )
         listener = driver.get_listener(arn)
         group_arns.append(driver.get_endpoint_group(listener.listener_arn).endpoint_group_arn)
-    return zones, group_arns
+    return group_arns
 
 
 class Fleet:
@@ -691,12 +772,19 @@ def _get_json(url: str):
         return json.loads(err.read())
 
 
+# the last /metrics text scraped from each replica, by health port: the
+# stage accountant's histograms in it are cumulative, so the phases fold
+# it into their per-stage tables (``stage_attribution``)
+LAST_METRICS: dict[int, str] = {}
+
+
 def scrape_replica(port: int) -> dict:
     """One replica as an operator scrapes it, ``bench.py``'s reads:
     AWS calls per service family and per operation off ``/metrics``,
     AIMD ceilings per family off ``/readyz`` and the shard block of
     ``/healthz``."""
     metrics = _http(f"http://127.0.0.1:{port}/metrics").decode()
+    LAST_METRICS[port] = metrics
     calls: dict[str, float] = {}
     ops: dict[str, float] = {}
     for line in metrics.splitlines():
@@ -716,6 +804,40 @@ def scrape_replica(port: int) -> dict:
     return {
         "calls": calls, "ops": ops, "ceilings": ceilings, "sharding": sharding, "metrics": metrics
     }
+
+
+def stage_attribution(pkg, texts: list[str], top: int = 12) -> dict:
+    """The stage accountant's table over replicas' ``/metrics`` texts
+    (``observability.profile.attribution_from_exposition`` sums each
+    stage's samples across them): the ``top`` stages by CPU, the CPU
+    they sum to, and ``self-tax``'s share of it (the observability
+    plane's own cost, which ``bench.py``'s profiling phase gates at 5 %
+    of throughput; printed, not enforced)."""
+    rows = pkg.profile.attribution_from_exposition("\n".join(texts))
+    cpu = sum(row["cpu_seconds"] for row in rows)
+    tax = sum(row["cpu_seconds"] for row in rows if row["stage"] == "self-tax")
+    return {
+        "replicas": len(texts),
+        "catalog": sorted(row["stage"] for row in rows),
+        "cpu_s": cpu,
+        "self_tax_share": tax / cpu if cpu else None,
+        "stages": rows[:top],
+    }
+
+
+def stage_line(phase: str, table: dict, card: str) -> str:
+    """One phase's per-stage table as a line of the script's output."""
+    share = table["self_tax_share"]
+    rows = ", ".join(
+        f"{r['stage']} {r['cpu_seconds']:.3f}/{r['wall_seconds']:.3f} s ({r['hits']})"
+        for r in table["stages"]
+    )
+    return (
+        f"{phase} stages over {table['replicas']} replicas' /metrics (CPU/wall s, hits): {rows}; "
+        f"staged CPU {table['cpu_s']:.3f} s, self-tax "
+        f"{'n/a' if share is None else f'{100 * share:.2f} %'} of it (bench.py's overhead "
+        f"gate: <= 5 %, not enforced here) on the host of {card}"
+    )
 
 
 def cpu_seconds(pid: int) -> float:
@@ -782,6 +904,24 @@ def _wait_for(what: str, probe, children: list[Child], start: float):
         if time.monotonic() - start > PROCESS_DEADLINE:
             raise PhaseError(f"no {what} within {PROCESS_DEADLINE} s")
         time.sleep(0.25)
+
+
+def shard_placement(ports: list[int], live: list[int], shards: set, balanced: bool) -> dict | None:
+    """The shards each live replica holds by its ``/healthz`` once every
+    one of ``shards`` is held (with ``balanced``, one by each replica),
+    else None.  With no key placed yet, placement has nothing to
+    balance: a replica that started first may claim every shard before
+    the other is up, and sheds one only once the fleet's keys weigh."""
+    try:
+        owned = {
+            r: set(_get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"].get("owned", ()))
+            for r in live
+        }
+    except OSError:
+        return None
+    if set().union(*owned.values()) != shards:
+        return None
+    return owned if not balanced or all(len(o) == 1 for o in owned.values()) else None
 
 
 def write_kubeconfig(workdir: pathlib.Path, server_url: str) -> pathlib.Path:
@@ -1785,6 +1925,43 @@ def replica_journeys(metrics: str) -> tuple[int, float]:
     return int(inflight), max(ages, default=0.0)
 
 
+class BudgetWatch:
+    """A fleet's AWS call rates between reads and its summed AIMD
+    ceilings, held to ``SHARD_BUDGET_QPS`` per service family at every
+    read, with the largest of each seen (``rates_max``,
+    ``ceilings_max``)."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.rates_max: dict[str, float] = {}
+        self.ceilings_max: dict[str, float] = {}
+        self._last: dict[int, tuple[float, dict]] = {}
+
+    def hold(self, scrapes: dict[int, dict], now: float) -> None:
+        """Hold one read: ``scrapes`` (``scrape_replica`` per replica)
+        taken at ``now`` (monotonic s)."""
+        rates: dict[str, float] = {}
+        ceilings: dict[str, float] = {}
+        for r, scrape in scrapes.items():
+            if r in self._last and now > self._last[r][0]:
+                then, before = self._last[r]
+                for family, count in scrape["calls"].items():
+                    delta = count - before["calls"].get(family, 0.0)
+                    rates[family] = rates.get(family, 0.0) + delta / (now - then)
+            self._last[r] = (now, scrape)
+            for family, ceiling in scrape["ceilings"].items():
+                ceilings[family] = ceilings.get(family, 0.0) + ceiling
+        for family, value in rates.items():
+            self.rates_max[family] = max(self.rates_max.get(family, 0.0), value)
+        for family, value in ceilings.items():
+            self.ceilings_max[family] = max(self.ceilings_max.get(family, 0.0), value)
+        if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*rates.values(), *ceilings.values()]):
+            raise PhaseError(
+                f"{self.phase}: call rates {rates} or summed AIMD ceilings {ceilings} exceed "
+                f"{SHARD_BUDGET_QPS}/s per service"
+            )
+
+
 def autoscale_fleet(
     pkg,
     package: str,
@@ -1893,12 +2070,14 @@ def autoscale_fleet(
                 raise PhaseError(f"autoscale {name}: ring epoch {epoch} (epochs seen {sorted(epochs)})")
             try:
                 owned_before = [
-                    _get_json(f"http://127.0.0.1:{port}/healthz")["sharding"]["owned"]
+                    _get_json(f"http://127.0.0.1:{port}/healthz")["sharding"].get("owned")
                     for port in ports
                 ]
                 views = [scrape_replica(port) for port in ports]
             except OSError:
                 return None
+            if None in owned_before or any("owned" not in view["sharding"] for view in views):
+                return None  # a replica serves /healthz before its membership exists
             ceilings: dict[str, float] = {}
             calls: dict[str, float] = {}
             for before, view in zip(owned_before, views):
@@ -2502,8 +2681,7 @@ def teardown_fleet(
     server = pkg.testserver.TestApiServer().start()
     children: list[Child] = []
     live = [0, 1]
-    rates_max: dict[str, float] = {}
-    ceilings_max: dict[str, float] = {}
+    budget = BudgetWatch("teardown")
     sweeps: dict[int, dict[int, dict]] = {0: {}, 1: {}}
     try:
         kubeconfig = write_kubeconfig(workdir, server.url)
@@ -2518,17 +2696,8 @@ def teardown_fleet(
         def running() -> list[Child]:
             return [children[r] for r in live]
 
-        def balanced() -> list[set] | None:
-            try:
-                owned = [
-                    set(_get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"].get("owned", ()))
-                    for r in live
-                ]
-            except OSError:
-                return None
-            return owned if set().union(*owned) == shards and all(len(o) == 1 for o in owned) else None
-
-        start_owned = _wait_for("one shard lease held by each replica", balanced, running(), spawned)
+        _wait_for("every shard lease held", lambda: shard_placement(ports, live, shards, False),
+                  running(), spawned)
         lease_s = time.monotonic() - spawned
         client = pkg.rest.RestClusterClient(server.url)
         aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
@@ -2556,6 +2725,10 @@ def teardown_fleet(
 
         _wait_for(f"{n} complete chains and {len(hosts)} TXT+A pairs", converged, running(), start)
         converge_s = time.monotonic() - start
+        start_owned = _wait_for(
+            "one shard lease held by each replica",
+            lambda: shard_placement(ports, live, shards, True), running(), start,
+        )
         arn_of = {owner: arn for arn, owner in aws.accelerator_owners().items()}
         if sorted(arn_of) != sorted(owner_tag.values()):
             raise PhaseError(f"teardown: accelerator owners {sorted(arn_of)} after converging")
@@ -2581,41 +2754,21 @@ def teardown_fleet(
                 out[shard_of[i]] += (owner_tag[i] in owners) + (hosts.get(i) in names_left)
             return out
 
-        last_scrape: dict[int, tuple[float, dict]] = {}
-
         def read() -> dict[int, dict] | None:
-            """The live replicas as scraped; every read holds the call
-            rate since the last one and the summed AIMD ceilings to the
-            budget, and keeps each sweep's report."""
+            """The live replicas as scraped; every read holds the
+            fleet's quota (``BudgetWatch``) and keeps each sweep's
+            report."""
             try:
                 now = time.monotonic()
                 scrapes = {r: scrape_replica(ports[r]) for r in live}
                 gcs = {r: _get_json(f"http://127.0.0.1:{ports[r]}/healthz")["gc"] for r in live}
             except OSError:
                 return None
-            rates: dict[str, float] = {}
-            ceilings: dict[str, float] = {}
-            for r, scrape in scrapes.items():
-                if r in last_scrape and now > last_scrape[r][0]:
-                    then, before = last_scrape[r]
-                    for family, count in scrape["calls"].items():
-                        delta = count - before["calls"].get(family, 0.0)
-                        rates[family] = rates.get(family, 0.0) + delta / (now - then)
-                last_scrape[r] = (now, scrape)
-                for family, ceiling in scrape["ceilings"].items():
-                    ceilings[family] = ceilings.get(family, 0.0) + ceiling
+            budget.hold(scrapes, now)
+            for r in live:
                 for report in gcs[r].get("per_shard", {}).values():
                     if "sweep" in report:
                         sweeps[r].setdefault(report["sweep"], report)
-            for family, value in rates.items():
-                rates_max[family] = max(rates_max.get(family, 0.0), value)
-            for family, value in ceilings.items():
-                ceilings_max[family] = max(ceilings_max.get(family, 0.0), value)
-            if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*rates.values(), *ceilings.values()]):
-                raise PhaseError(
-                    f"teardown: call rates {rates} or summed AIMD ceilings {ceilings} exceed "
-                    f"{SHARD_BUDGET_QPS}/s per service"
-                )
             return {r: {**scrapes[r], "gc": gcs[r]} for r in live}
 
         read()
@@ -2798,7 +2951,7 @@ def teardown_fleet(
         "hostnames": {"kept": len(plan["kept_hosts"]), "deleted": len(plan["doomed_hosts"])},
         "latency_s": latency,
         "lease_s": lease_s,
-        "start_owned": [sorted(o) for o in start_owned],
+        "start_owned": [sorted(start_owned[r]) for r in sorted(start_owned)],
         "converge_s": converge_s,
         "burst_s": burst_s,
         "reactive_teardowns_per_s": before_kill / kill["at_s"],
@@ -2820,13 +2973,811 @@ def teardown_fleet(
         },
         "aws_calls": {family: int(count) for family, count in sorted(calls.items())},
         "calls_per_chain": sum(calls.values()) / len(doomed_i),
-        "call_rates_max": dict(sorted(rates_max.items())),
-        "aimd_ceiling_sums_max": dict(sorted(ceilings_max.items())),
+        "call_rates_max": dict(sorted(budget.rates_max.items())),
+        "aimd_ceiling_sums_max": dict(sorted(budget.ceilings_max.items())),
         "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"]},
         "elapsed_s": elapsed,
         "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
         "exit": exit_status,
         "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
+        "aws_state": pkg.fake_backend.FileBackedFakeAWSBackend(state_path).snapshot_state(),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the drift phase: drift resync over a package's controller processes
+# ---------------------------------------------------------------------------
+
+def drift_view(data: dict) -> dict:
+    """One read of the fake account's state file (``data``, as saved):
+    the accelerators (enabled, listeners), endpoint groups (parent and
+    endpoint weights) and records a tamper's repair is judged by, and
+    the owner tags that repeat."""
+    accelerators = {}
+    owners = []
+    for entry in data.get("accelerators", []):
+        accel = entry["accelerator"]
+        accelerators[accel["accelerator_arn"]] = (
+            accel["enabled"], [listener["listener_arn"] for listener in entry["listeners"]]
+        )
+        owner = dict(map(tuple, entry["tags"])).get("aws-global-accelerator-owner")
+        if owner:
+            owners.append(owner)
+    groups = {
+        eg["endpoint_group_arn"]: (eg["parent"], {d["endpoint_id"]: d["weight"] for d in eg["endpoints"]})
+        for eg in data.get("endpoint_groups", [])
+    }
+    records = {
+        (r["name"], r["type"]): r for table in data.get("records", {}).values() for r in table
+    }
+    return {
+        "accelerators": accelerators,
+        "groups": groups,
+        "records": records,
+        "repeated": sorted({o for o in owners if owners.count(o) > 1}),
+    }
+
+
+def tamper_repaired(view: dict, tamper: dict) -> bool:
+    """Whether ``view`` (``drift_view``) shows ``tamper`` repaired."""
+    kind = tamper["kind"]
+    if kind == "disable":
+        accel = view["accelerators"].get(tamper["accelerator"])
+        return accel is not None and accel[0]
+    if kind == "listener":
+        accel = view["accelerators"].get(tamper["accelerator"])
+        return accel is not None and any(
+            parent in accel[1] and tamper["endpoint"] in endpoints
+            for parent, endpoints in view["groups"].values()
+        )
+    if kind in ("weight", "endpoint"):
+        endpoints = view["groups"].get(tamper["group"], (None, {}))[1]
+        return endpoints.get(tamper["endpoint"], -1) == tamper["weight"]
+    return view["records"].get(tuple(tamper["record"])) == tamper["want"]
+
+
+def _watch_drift(state_path: str, plan: str, shared: dict, stop, ready, out_path: str) -> None:
+    """``DriftWatch``'s loop, in a process of its own: read the state
+    file every ``RESIZE_POLL`` s until ``stop``; stamp in ``shared`` the
+    first read (monotonic s) that shows each applied tamper repaired;
+    then write the duplicates seen, the tampers never seen open, the
+    read count and the longest gap between reads to ``out_path``."""
+    tampers = json.loads(plan)
+    applied, repaired = shared["applied"], shared["repaired"]
+    faults: list[str] = []
+    seen_open: set[int] = set()
+    polls, max_gap, previous = 0, 0.0, None
+    while True:
+        began = time.monotonic()
+        with open(state_path) as f:
+            view = drift_view(json.load(f))
+        now = time.monotonic()
+        if previous is not None:
+            max_gap = max(max_gap, now - previous)
+        previous, polls = now, polls + 1
+        if view["repeated"] and len(faults) < 20:
+            faults.append(f"read {polls}: owners repeated {view['repeated']}")
+        with shared["lock"]:
+            for i, tamper in enumerate(tampers):
+                if not applied[i] or began < applied[i] or repaired[i]:
+                    continue
+                if tamper_repaired(view, tamper):
+                    repaired[i] = now
+                else:
+                    seen_open.add(i)
+        ready.set()
+        if stop.wait(RESIZE_POLL):
+            break
+    pathlib.Path(out_path).write_text(json.dumps({
+        "faults": faults, "never_open": sorted(set(range(len(tampers))) - seen_open),
+        "polls": polls, "max_gap_s": max_gap,
+    }))
+
+
+class DriftWatch:
+    """Reads the shared account's state file every ``RESIZE_POLL`` s for
+    the whole drill, in a process of its own (as ``DuplicateWatch``):
+    ``repaired()`` holds, per tamper of the plan, the first read after
+    ``applied(i)`` that shows it repaired (monotonic s, 0.0 while open).
+    ``check`` raises a repeated accelerator owner seen at any read, or a
+    gap between reads over ``RESIZE_POLL_BOUND``."""
+
+    def __init__(self, state_path: str, tampers: list[dict], workdir: pathlib.Path):
+        context = multiprocessing.get_context("spawn")
+        self._shared = {
+            "lock": context.Lock(),
+            "applied": context.Array("d", len(tampers), lock=False),
+            "repaired": context.Array("d", len(tampers), lock=False),
+        }
+        self._stop, self._ready = context.Event(), context.Event()
+        self._out = workdir / "drift-watch.json"
+        self._process = context.Process(
+            target=_watch_drift, name="drift-watch", daemon=True,
+            args=(state_path, json.dumps(tampers), self._shared, self._stop, self._ready,
+                  str(self._out)),
+        )
+        self.result: dict = {}
+
+    def applied(self, i: int) -> None:
+        """Mark tamper ``i`` committed (monotonic s): reads that start
+        after it judge its repair."""
+        with self._shared["lock"]:
+            self._shared["applied"][i] = time.monotonic()
+
+    def times(self) -> tuple[list[float], list[float]]:
+        with self._shared["lock"]:
+            return list(self._shared["applied"]), list(self._shared["repaired"])
+
+    def __enter__(self) -> "DriftWatch":
+        self._process.start()
+        if not self._ready.wait(PROCESS_DEADLINE):
+            self._process.kill()
+            raise PhaseError("the drift watch never read the state file")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._process.join(JOIN_TIMEOUT)
+        if self._process.is_alive():
+            self._process.kill()
+            self._process.join(JOIN_TIMEOUT)
+        if self._out.exists():
+            self.result = json.loads(self._out.read_text())
+
+    def check(self) -> None:
+        result = self.result
+        if self._process.exitcode != 0 or not result.get("polls"):
+            raise PhaseError(f"the drift watch exited {self._process.exitcode}")
+        if result["faults"]:
+            raise PhaseError(f"drift: duplicate accelerators {result['faults']}")
+        if result["max_gap_s"] > RESIZE_POLL_BOUND:
+            raise PhaseError(
+                f"the drift watch went {result['max_gap_s']} s between reads "
+                f"(bound {RESIZE_POLL_BOUND} s)"
+            )
+
+
+def drift_journeys(metrics: str) -> tuple[int, int, int]:
+    """One replica's journeys in flight, its drift journeys closed and
+    its reconciles."""
+    closed = sum(
+        value for labels, value in metric_samples(metrics, "agac_journey_converge_seconds_count").items()
+        if 'trigger="drift"' in labels
+    )
+    reconciles = sum(metric_samples(metrics, "agac_reconcile_results_total").values())
+    return replica_journeys(metrics)[0], int(closed), int(reconciles)
+
+
+def drift_ceilings(owned: dict[str, int], accelerators: int) -> dict[str, int]:
+    """One replica's read ceilings per tick: ``DRIFT_READS`` scaled from
+    the runbook's fleet to ``owned`` (its share of the fleet by the same
+    parts), plus one refresh of the discovery snapshot over the
+    account's ``accelerators`` (a drain at 100 a page and a tag read
+    each) and one drain of the hosted zones."""
+    ceilings = {
+        op: -(-value * owned[part] // DRIFT_TABLE_FLEET[part]) for op, (value, part) in DRIFT_READS.items()
+    }
+    ceilings["list_accelerators"] = -(-accelerators // 100)
+    ceilings["list_tags_for_resource"] += accelerators
+    ceilings["list_hosted_zones"] = 1
+    return ceilings
+
+
+SYNCED_LINE = re.compile(r"Successfully synced '([^']+)'")
+SHARD_LINE = re.compile(
+    r"shard (\d+) (lease acquired|lease stolen|lease lost|shed for rebalance)"
+)
+
+
+def foreign_syncs(stderr: str, shard_of_key) -> list[str]:
+    """The reconciles a replica logged for keys its shards did not own
+    at that point of its log: ownership follows its own ``shard N
+    lease ...`` lines in order, so no clock is compared."""
+    owned: set[int] = set()
+    foreign = []
+    for line in stderr.splitlines():
+        match = SHARD_LINE.search(line)
+        if match:
+            shard = int(match[1])
+            if match[2] in ("lease acquired", "lease stolen"):
+                owned.add(shard)
+            else:
+                owned.discard(shard)
+            continue
+        match = SYNCED_LINE.search(line)
+        if match and shard_of_key(match[1]) not in owned:
+            foreign.append(f"{match[1]} (owned {sorted(owned)})")
+    return foreign
+
+
+def time_ticks(read, running, parts: dict[int, dict], period: float):
+    """Time drift ticks on each replica until one re-verified at least
+    half its chains (a tick inside the verify window reads little):
+    from the last read with no journey in flight and no drift journey
+    closed to the first read with none in flight again, with the reads
+    by operation in between.  A window where other reconciles ran too
+    (the informers' 30 s resync re-reconciles every binding) is not
+    counted.  ``read`` scrapes the live replicas (``running``);
+    ``parts`` holds each one's accelerators.  Returns the timed ticks
+    and the windows skipped, per replica."""
+    ticks: dict[int, dict] = {r: {"phase": "quiet"} for r in parts}
+    timed: dict[int, list[dict]] = {r: [] for r in parts}
+    shared = {r: 0 for r in parts}
+    started = time.monotonic()
+    while any(t["phase"] != "done" for t in ticks.values()):
+        for child in running():
+            child.check_alive()
+        views = read()
+        now = time.monotonic()
+        for r, scrape in (views or {}).items():
+            tick = ticks[r]
+            inflight, closed, reconciles = drift_journeys(scrape["metrics"])
+            if tick["phase"] in ("quiet", "armed") and not inflight and closed == tick.get("closed"):
+                # quiet still: the window (and the tick's time, an upper
+                # bound) starts at the last quiet read
+                tick.update(phase="armed", ops=scrape["ops"], start=now, reconciles=reconciles)
+            elif tick["phase"] == "quiet" and not inflight:
+                tick.update(closed=closed)
+            elif tick["phase"] == "armed":
+                tick.update(phase="ticking")
+            elif tick["phase"] == "ticking" and not inflight and closed > tick["closed"]:
+                if reconciles - tick["reconciles"] > closed - tick["closed"]:
+                    tick.update(phase="quiet", closed=closed)
+                    shared[r] += 1
+                    continue
+                reads = {
+                    op: int(count - tick["ops"].get(op, 0.0))
+                    for op, count in sorted(scrape["ops"].items())
+                    if count > tick["ops"].get(op, 0.0)
+                }
+                timed[r].append({
+                    "tick_s": now - tick["start"], "journeys": closed - tick["closed"], "reads": reads,
+                })
+                verified = 2 * reads.get("list_endpoint_groups", 0) >= parts[r]["accelerators"]
+                tick.update(phase="done" if verified else "quiet", closed=closed)
+        if now - started > 4 * period + PROCESS_DEADLINE / 10:
+            raise PhaseError(f"drift: no verifying tick timed on every replica: {timed}")
+        time.sleep(DRIFT_TICK_READ)
+    return timed, shared
+
+
+def apply_tamper(pkg, aws, state_path: str, zone_id: str, records: dict, tamper: dict) -> None:
+    """Commit ``tamper`` (a plan entry of ``drift_fleet``) to the
+    account through ``aws``; ``records`` maps (name, type) to the zone's
+    record sets as they were before any tamper."""
+    types_ = pkg.awstypes
+    kind = tamper["kind"]
+    if kind == "disable":
+        aws.update_accelerator(tamper["accelerator"], enabled=False)
+    elif kind == "listener":
+        for eg, (parent, _) in drift_view(account_state(state_path))["groups"].items():
+            if parent == tamper["listener"]:
+                aws.delete_endpoint_group(eg)
+        aws.delete_listener(tamper["listener"])
+    elif kind == "weight":
+        group = aws.describe_endpoint_group(tamper["group"])
+        aws.update_endpoint_group(tamper["group"], [
+            types_.EndpointConfiguration(
+                endpoint_id=d.endpoint_id,
+                weight=DRIFT_WEIGHT if d.endpoint_id == tamper["endpoint"] else d.weight,
+                client_ip_preservation_enabled=d.client_ip_preservation_enabled,
+            )
+            for d in group.endpoint_descriptions
+        ])
+    elif kind == "endpoint":
+        aws.remove_endpoints(tamper["group"], [tamper["endpoint"]])
+    else:
+        record = records[tuple(tamper["record"])]
+        if kind == "record-edit":
+            edited = types_.ResourceRecordSet(
+                name=record.name, type=record.type, ttl=record.ttl,
+                alias_target=types_.AliasTarget(
+                    dns_name="tampered.example.net.",
+                    hosted_zone_id=record.alias_target.hosted_zone_id,
+                ),
+            )
+            change = types_.Change("UPSERT", edited)
+        else:
+            change = types_.Change("DELETE", record)
+        aws.change_resource_record_sets(zone_id, [change])
+
+
+def account_state(state_path: str) -> dict:
+    """The fake account's state file as last saved."""
+    return json.loads(pathlib.Path(state_path).read_text())
+
+
+def make_drift_binding(pkg, k: int, service: str, endpoint_group_arn: str):
+    """Binding ``k`` in ``default``: the load balancer of ``service``
+    into the out-of-band endpoint group ``endpoint_group_arn``."""
+    egb = pkg.egb
+    return egb.EndpointGroupBinding(
+        metadata=pkg.objects.ObjectMeta(name=f"binding{k:04d}", namespace="default"),
+        spec=egb.EndpointGroupBindingSpec(
+            endpoint_group_arn=endpoint_group_arn,
+            weight=100,
+            service_ref=egb.ServiceReference(name=service),
+        ),
+    )
+
+
+def external_state(data: dict, group_arns: list[str]) -> dict:
+    """The out-of-band chains' accelerators, listeners and groups in
+    ``data`` (a state snapshot): each group's parent and endpoints."""
+    groups = {eg["endpoint_group_arn"]: eg for eg in data["endpoint_groups"]}
+    parents = {groups[arn]["parent"] for arn in group_arns}
+    return {
+        "accelerators": sorted(
+            (e["accelerator"]["accelerator_arn"], e["accelerator"]["enabled"],
+             tuple(sorted(listener["listener_arn"] for listener in e["listeners"])))
+            for e in data["accelerators"]
+            if any(listener["listener_arn"] in parents for listener in e["listeners"])
+        ),
+        "groups": {
+            arn: (groups[arn]["parent"], sorted(map(json.dumps, groups[arn]["endpoints"])))
+            for arn in group_arns
+        },
+    }
+
+
+def drift_fleet(
+    pkg,
+    package: str,
+    n: int,
+    latency: float,
+    workdir: pathlib.Path,
+    period: float = DRIFT_PERIOD,
+    hostname_every: int = TEARDOWN_HOSTNAME_EVERY,
+    tampers: tuple[str, ...] = DRIFT_TAMPERS,
+    victim_shard: int = 0,
+    n_bindings: int | None = None,
+) -> dict:
+    """Drift resync over processes (``docs/operations.md:560-640``): two
+    ``python -m <package> controller --shard-count 2 --shards-per-replica
+    2 --drift-resync-period <period>`` replicas on the teardown phase's
+    fleet settings (one apiserver, the flock-arbitrated fake account at
+    ``latency`` s per call, the zone ``TEARDOWN_ZONE``), with the
+    discovery snapshot's TTL at the period.
+
+    (a) Once each replica holds one shard, ``bench.py``'s mixed fleet is
+    created: ``n`` Services (hostnames per ``teardown_hostname``, each
+    such one behind its own NLB), n/10 ALB Ingresses and ``n_bindings``
+    (default n/10) EndpointGroupBindings, binding k putting the NLB of
+    the k-th hostname-annotated Service into the endpoint group of an
+    out-of-band chain this process built first (cluster tag
+    ``external``); it converges: every chain, every TXT+A pair, every
+    binding bound to one endpoint.  (b) One tick is timed on each
+    replica, from its drift journeys opening to none in flight, with its
+    reads by operation.  (c) At once, in both shards, ``tampers`` are
+    applied out of band (``DRIFT_WINDOWS``); a ``DriftWatch`` process
+    reads the account every 0.1 s.  (d) As soon as the first tamper of
+    shard ``victim_shard`` is repaired, its holder gets SIGKILL; the
+    survivor steals its lease one lease duration later and adopts its
+    keys.  (e) Once every tamper is repaired, every binding is deleted,
+    so that its finalizer removes its endpoint.
+
+    Hard bounds (``PhaseError``): each tamper repaired within ``period``
+    + its window (one discovery TTL for a disable) + the longest tick,
+    plus the takeover for the victim's shard; some of the victim shard's
+    tampers still open at the kill; each replica's reads in the timed
+    tick within ``drift_ceilings``; no accelerator owner repeated at any
+    read; no reconcile logged by a replica for a key its shards did not
+    own then; the fleet's call rate and summed AIMD ceilings within
+    ``SHARD_BUDGET_QPS`` per service at every read; no journey in flight
+    on the survivor within ``period`` + ``AUTOSCALE_SETTLE_S`` s of the
+    last repair; every binding gone, its endpoint out of its group and
+    the out-of-band chains otherwise as built; exactly the fleet's
+    chains and pairs at the end; the survivor exits 0 on SIGTERM.
+    Returns the run's times, reads and final AWS state."""
+    n_ing = max(1, n // 10)
+    n_egb = n_bindings if n_bindings is not None else max(1, n // 10)
+    hosted = [i for i in range(n) if teardown_hostname(i, hostname_every)]
+    if n_egb > len(hosted):
+        raise PhaseError(f"drift: {n_egb} bindings for {len(hosted)} hostname-annotated Services")
+    total = n + n_ing + n_egb
+    env = shard_env(n, latency, workdir)
+    lbs = [SHARD_LB] + [service_lb(i) for i in hosted] + [alb(j) for j in range(n_ing)]
+    env.update(
+        AGAC_FAKE_LBS=",".join("=".join(lb) for lb in lbs),
+        AGAC_FAKE_ZONES=TEARDOWN_ZONE,
+        AGAC_FAKE_QUOTA_ACCELERATORS=str(total + 20),
+        AGAC_DISCOVERY_CACHE_TTL=f"{period:g}",
+    )
+    state_path = env["AGAC_FAKE_STATE"]
+    aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path, quota_accelerators=total + 20)
+    lb_arn = {name: aws.add_load_balancer(name, REGION, host).load_balancer_arn for name, host in lbs}
+    zone_id = aws.add_hosted_zone(TEARDOWN_ZONE).id
+    group_arns = external_chains(pkg, aws, n_egb)
+    external_before = external_state(account_state(state_path), group_arns)
+    services = [make_teardown_service(pkg, i, hostname_every) for i in range(n)]
+    ingresses = [make_ingress(pkg, j) for j in range(n_ing)]
+    bindings = [
+        make_drift_binding(pkg, k, services[hosted[k]].metadata.name, group_arns[k])
+        for k in range(n_egb)
+    ]
+    bound_lb = {k: lb_arn[service_lb(hosted[k])[0]] for k in range(n_egb)}
+    hosts = {f"{h}." for i in hosted if (h := teardown_hostname(i, hostname_every))}
+    hosts |= {f"ing{j:04d}.z{j % N_ZONES}.bench.example.com." for j in range(n_ing)}
+    ring = pkg.ring.HashRing(2)
+
+    def key_of(obj) -> str:
+        return f"{obj.metadata.namespace}/{obj.metadata.name}"
+
+    shard_of = {key_of(obj): ring.shard_for_key(key_of(obj)) for obj in services + ingresses + bindings}
+    shards = {0, 1}
+    placement = ["--shards-per-replica", "2", "--drift-resync-period", f"{period:g}"]
+    server = pkg.testserver.TestApiServer().start()
+    children: list[Child] = []
+    live = [0, 1]
+    budget = BudgetWatch("drift")
+    profile_capture: dict = {}
+    try:
+        kubeconfig = write_kubeconfig(workdir, server.url)
+        ports = [_free_port() for _ in live]
+        spawned = time.monotonic()
+        for replica, port in enumerate(ports):
+            children.append(Child(
+                f"controller-{replica}",
+                shard_controller_argv(package, kubeconfig, port, 2, placement), env, workdir,
+            ))
+
+        def running() -> list[Child]:
+            return [children[r] for r in live]
+
+        _wait_for("every shard lease held", lambda: shard_placement(ports, live, shards, False),
+                  running(), spawned)
+        lease_s = time.monotonic() - spawned
+        client = pkg.rest.RestClusterClient(server.url)
+
+        def record_map() -> dict:
+            return {(r.name, r.type): r for r in aws.records_in_zone(zone_id)}
+
+        def bound_ids() -> list[list[str]]:
+            return [
+                list(client.get("EndpointGroupBinding", "default", b.metadata.name).status.endpoint_ids)
+                for b in bindings
+            ]
+
+        def create(kind: str, obj) -> None:
+            """Create ``obj``, again after a reset connection (the test
+            apiserver's accept backlog overflows under the replicas'
+            own requests); an object a lost answer created counts."""
+            for attempt in range(3):
+                try:
+                    client.create(kind, obj)
+                    return
+                except pkg.errors.AlreadyExistsError:
+                    if not attempt:
+                        raise
+                    return
+                except ConnectionError:
+                    if attempt == 2:
+                        raise
+                    time.sleep(0.1)
+
+        start = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            for kind, objects in (("Service", services), ("Ingress", ingresses),
+                                  ("EndpointGroupBinding", bindings)):
+                list(pool.map(lambda obj: create(kind, obj), objects))
+
+        def converged() -> bool:
+            chains = aws.chain_counts()
+            if max(chains) > total:
+                raise PhaseError(f"drift: chain counts {chains} exceed {total}: duplicates")
+            have = record_map()
+            return (
+                chains == (total, total, total)
+                and all((h, t) in have for h in hosts for t in ("TXT", "A"))
+                and all(len(ids) == 1 for ids in bound_ids())
+            )
+
+        _wait_for(
+            f"{total} complete chains, {len(hosts)} TXT+A pairs and {n_egb} bindings bound",
+            converged, running(), start,
+        )
+        converge_s = time.monotonic() - start
+        start_owned = _wait_for(
+            "one shard lease held by each replica",
+            lambda: shard_placement(ports, live, shards, True), running(), start,
+        )
+        def read() -> dict[int, dict] | None:
+            """The live replicas as scraped, each read holding the
+            fleet's quota (``BudgetWatch``)."""
+            try:
+                now = time.monotonic()
+                scrapes = {r: scrape_replica(ports[r]) for r in live}
+            except OSError:
+                return None
+            budget.hold(scrapes, now)
+            return scrapes
+
+        # (b) ticks on each replica, timed from its drift journeys opening
+        # until none is in flight, with their reads by operation, until
+        # one re-verified the chains (a tick inside the verify window
+        # reads little)
+        owner_of_shard = {next(iter(o)): r for r, o in start_owned.items()}
+        parts = {}
+        for r in live:
+            mine = [key for key, shard in shard_of.items() if owner_of_shard[shard] == r]
+            parts[r] = {
+                "accelerators": sum(1 for k in mine if not k.startswith("default/binding")),
+                "bindings": sum(1 for k in mine if k.startswith("default/binding")),
+                "objects": len(mine),
+                "zones": 1,
+            }
+        timed, shared = time_ticks(read, running, parts, period)
+        accelerators_in_account = len(aws.all_accelerator_arns())
+        ceilings = {r: drift_ceilings(parts[r], accelerators_in_account) for r in timed}
+        read_faults = {}
+        for r, runs in timed.items():
+            for tick in runs:
+                over = {
+                    op: (count, ceilings[r].get(op, 0))
+                    for op, count in tick["reads"].items()
+                    if count > ceilings[r].get(op, 0)
+                }
+                if over:
+                    read_faults.setdefault(r, []).append(over)
+        ticks = {r: {"timed": timed[r], "ceilings": ceilings[r], "shared": shared[r]} for r in timed}
+        if read_faults:
+            raise PhaseError(
+                f"drift: reads per tick over their ceilings (reads, ceiling): {read_faults}; "
+                f"ticks {ticks}"
+            )
+        tick_s = max(t["tick_s"] for runs in timed.values() for t in runs)
+
+        # (c) the tamper plan: in each shard, each kind on an object of its own
+        snap = account_state(state_path)
+        accel_of = {
+            dict(map(tuple, e["tags"])).get("aws-global-accelerator-owner"): e for e in snap["accelerators"]
+        }
+        records = record_map()
+        plan: list[dict] = []
+        for shard in sorted(shards):
+            plain = [i for i in range(n) if i not in hosted and shard_of[key_of(services[i])] == shard]
+            named = [i for i in hosted if shard_of[key_of(services[i])] == shard]
+            bound = [k for k in range(n_egb) if shard_of[key_of(bindings[k])] == shard]
+            pools = {"disable": plain, "listener": plain, "record-edit": named,
+                     "record-delete": named, "weight": bound, "endpoint": bound}
+            used: set[tuple[int, int]] = set()
+            for kind in tampers:
+                free = [i for i in pools[kind] if (id(pools[kind]), i) not in used]
+                if not free:
+                    raise PhaseError(f"drift: no object of shard {shard} left for the {kind} tamper")
+                target = free[0]
+                used.add((id(pools[kind]), target))
+                tamper = {"kind": kind, "shard": shard}
+                if kind in ("disable", "listener"):
+                    entry = accel_of[f"service/{key_of(services[target])}"]
+                    tamper.update(
+                        key=key_of(services[target]), accelerator=entry["accelerator"]["accelerator_arn"],
+                        endpoint=lb_arn[SHARD_LB[0]],
+                        listener=entry["listeners"][0]["listener_arn"],
+                    )
+                elif kind in ("weight", "endpoint"):
+                    tamper.update(
+                        key=key_of(bindings[target]), group=group_arns[target],
+                        endpoint=bound_lb[target], weight=100,
+                    )
+                else:
+                    name = f"{teardown_hostname(target, hostname_every)}."
+                    record = records[(name, "A" if kind == "record-edit" else "TXT")]
+                    tamper.update(
+                        key=key_of(services[target]), record=[record.name, record.type],
+                        want=next(
+                            r for r in snap["records"][zone_id]
+                            if (r["name"], r["type"]) == (record.name, record.type)
+                        ),
+                    )
+                plan.append(tamper)
+        with DriftWatch(state_path, plan, workdir) as watch:
+            tampered_at = time.monotonic()
+            for i, tamper in enumerate(plan):
+                apply_tamper(pkg, aws, state_path, zone_id, records, tamper)
+                watch.applied(i)
+            tamper_s = time.monotonic() - tampered_at
+            # (d) the kill, at the victim shard's first repair: the watch
+            # is polled alone here, so the kill lands within a read of it
+            victims = [i for i, t in enumerate(plan) if t["shard"] == victim_shard]
+            while True:
+                for child in running():
+                    child.check_alive()
+                _, repaired = watch.times()
+                if any(repaired[i] for i in victims):
+                    break
+                if time.monotonic() - tampered_at > PROCESS_DEADLINE:
+                    raise PhaseError(f"drift: no tamper of shard {victim_shard} repaired")
+                time.sleep(0.02)
+            owners = _wait_for(
+                "a read of the replicas' shards", lambda: shard_placement(ports, live, shards, False),
+                running(), time.monotonic(),
+            )
+            (victim,) = [r for r in live if victim_shard in owners[r]]
+            victim_metrics = scrape_replica(ports[victim])["metrics"]
+            children[victim].popen.send_signal(signal.SIGKILL)
+            children[victim].popen.wait(timeout=EXIT_DEADLINE)
+            killed_at = time.monotonic()
+            live.remove(victim)
+            (survivor,) = live
+            # what the victim committed is in the file now, and it
+            # commits nothing more
+            at_kill = drift_view(account_state(state_path))
+            kill = {
+                "victim": victim,
+                "owned": sorted(owners[victim]),
+                "at_s": killed_at - tampered_at,
+                "open": [plan[i]["kind"] for i in victims if not tamper_repaired(at_kill, plan[i])],
+            }
+            by_victim = {i for i in victims if tamper_repaired(at_kill, plan[i])}
+            if not kill["open"]:
+                raise PhaseError(f"drift: every tamper of shard {victim_shard} repaired at the kill: {kill}")
+            # the steal, every tamper repaired, and the survivor's resync
+            # of the adopted keys (trigger=handoff) drained: its tick
+            # over them, with the read plane dropped at the adoption
+            profiler = None
+            handoff: list[tuple[float, int]] = []
+            windows = {
+                kind: period if DRIFT_WINDOWS[kind] is None else DRIFT_WINDOWS[kind] for kind in tampers
+            }
+            deadline = period + max(windows.values()) + 2 * float(SHARD_ENV["AGAC_LEASE_DURATION"]) + 60
+            while True:
+                for child in running():
+                    child.check_alive()
+                now = time.monotonic()
+                views = read()
+                if "takeover_s" not in kill and views is not None:
+                    if set(views[survivor]["sharding"].get("owned", ())) == shards:
+                        kill["takeover_s"] = now - killed_at
+                        profiler = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+                        capture = profiler.submit(
+                            _get_json,
+                            f"http://127.0.0.1:{ports[survivor]}/debug/profile?seconds={DRIFT_PROFILE_S:g}",
+                        )
+                if "takeover_s" in kill and views is not None:
+                    closed = sum(
+                        value for labels, value in metric_samples(
+                            views[survivor]["metrics"], "agac_journey_converge_seconds_count"
+                        ).items() if 'trigger="handoff"' in labels
+                    )
+                    handoff.append((now, int(closed)))
+                applied, repaired = watch.times()
+                drained = len(handoff) > 3 and len({c for _, c in handoff[-4:]}) == 1 and handoff[-1][1]
+                if all(repaired) and drained:
+                    break
+                if now - tampered_at > deadline:
+                    raise PhaseError(
+                        f"drift: tampers open {[t['kind'] for t, r in zip(plan, repaired) if not r]}, "
+                        f"handoff journeys closed {handoff[-4:]} {now - tampered_at} s after the "
+                        f"tamper (kill {kill})"
+                    )
+                time.sleep(TEARDOWN_READ)
+            taken_at = killed_at + kill["takeover_s"]
+            kill["adoption_tick_s"] = next(t for t, c in handoff if c == handoff[-1][1]) - taken_at
+            kill["handoff_journeys"] = handoff[-1][1]
+            repairs = []
+            late = []
+            for i, (tamper, at, done) in enumerate(zip(plan, applied, repaired)):
+                # one tick of the replica that repairs: after the takeover
+                # the survivor's queue holds its adoption's resync too
+                tick = max(tick_s, kill["adoption_tick_s"]) if done > taken_at else tick_s
+                bound = period + windows[tamper["kind"]] + tick + (
+                    kill["takeover_s"] if tamper["shard"] == victim_shard else 0.0
+                )
+                repair = {"kind": tamper["kind"], "shard": tamper["shard"], "key": tamper["key"],
+                          "repair_s": done - at, "bound_s": bound,
+                          "by": "victim" if i in by_victim else "survivor"}
+                repairs.append(repair)
+                if repair["repair_s"] > bound:
+                    late.append(repair)
+            if late:
+                raise PhaseError(f"drift: tampers repaired past their bounds {late}")
+            repaired_s = max(repaired) - tampered_at
+            if profiler is not None:
+                profile_capture = capture.result(timeout=DRIFT_PROFILE_S + 30)
+                profiler.shutdown()
+            # (e) the bindings' finalizers
+            unbound_at = time.monotonic()
+            for binding in bindings:
+                client.delete("EndpointGroupBinding", "default", binding.metadata.name)
+
+            def unbound() -> bool:
+                for binding in bindings:
+                    try:
+                        client.get("EndpointGroupBinding", "default", binding.metadata.name)
+                        return False
+                    except pkg.errors.NotFoundError:
+                        pass
+                return external_state(account_state(state_path), group_arns) == external_before
+
+            _wait_for("every binding finalized and its endpoint removed", unbound, running(), unbound_at)
+            unbind_s = time.monotonic() - unbound_at
+            calm = time.monotonic()
+
+            def idle() -> dict | None:
+                views = read()
+                if views is None or replica_journeys(views[survivor]["metrics"]) != (0, 0.0):
+                    if time.monotonic() - calm > period + AUTOSCALE_SETTLE_S:
+                        raise PhaseError(
+                            f"drift: journeys in flight on the survivor "
+                            f"{replica_journeys(views[survivor]['metrics']) if views else None} "
+                            f"{time.monotonic() - calm} s after calm"
+                        )
+                    return None
+                return views
+
+            final = _wait_for("no journey in flight on the survivor", idle, running(), calm)
+            settle_s = time.monotonic() - calm
+            elapsed = time.monotonic() - start
+            time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
+        watch.check()
+        # the end state: the fleet's chains and pairs, every repair standing
+        snap = account_state(state_path)
+        view = drift_view(snap)
+        fleet_owners = {f"service/{key_of(s)}" for s in services} | {
+            f"ingress/{key_of(i)}" for i in ingresses
+        }
+        owners_now = set(aws.accelerator_owners().values())
+        # the bindings' groups are judged by the out-of-band chains above
+        undone = [
+            t["kind"] for t in plan
+            if t["kind"] not in ("weight", "endpoint") and not tamper_repaired(view, t)
+        ]
+        if undone:
+            raise PhaseError(f"drift: repairs undone at the end: {undone}")
+        if aws.chain_counts() != (total, total, total) or not fleet_owners <= owners_now or len(owners_now) != total:
+            raise PhaseError(
+                f"drift: chain counts {aws.chain_counts()}, {len(owners_now)} owners at the end "
+                f"(want the fleet's {n + n_ing} and {n_egb} out-of-band chains)"
+            )
+        have = set(record_map())
+        want = {(h, t) for h in hosts for t in ("TXT", "A")}
+        if have != want:
+            raise PhaseError(f"drift: records {sorted(have ^ want)} differ from the fleet's pairs")
+        foreign = {
+            r: foreign_syncs(children[r].stderr(), lambda key: shard_of.get(key))
+            for r in (0, 1)
+        }
+        if any(foreign.values()):
+            raise PhaseError(f"drift: reconciles of keys the replica's shards did not own: {foreign}")
+        exit_status = children[survivor].terminate()
+    finally:
+        for child in children:
+            child.kill()
+        server.stop()
+    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
+    if exit_status != 0 or tracebacks:
+        raise PhaseError(f"drift: the survivor exited {exit_status}, tracebacks from {tracebacks}")
+    return {
+        "services": n,
+        "ingresses": n_ing,
+        "bindings": n_egb,
+        "hostnames": len(hosts),
+        "latency_s": latency,
+        "period_s": period,
+        "lease_s": lease_s,
+        "start_owned": {r: sorted(o) for r, o in start_owned.items()},
+        "converge_s": converge_s,
+        "ticks": ticks,
+        "tick_s": tick_s,
+        "period_over_tick": period / tick_s,
+        "tamper_s": tamper_s,
+        "repairs": repairs,
+        "kill": kill,
+        "repaired_s": repaired_s,
+        "unbind_s": unbind_s,
+        "journeys_settle_s": settle_s,
+        "call_rates_max": dict(sorted(budget.rates_max.items())),
+        "aimd_ceiling_sums_max": dict(sorted(budget.ceilings_max.items())),
+        "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"],
+                  "never_open": [plan[i]["kind"] for i in watch.result["never_open"]]},
+        "stages": stage_attribution(pkg, [victim_metrics, final[survivor]["metrics"]]),
+        "profile": {
+            "seconds": DRIFT_PROFILE_S, "samples": profile_capture.get("samples"),
+            "top": profile_capture.get("top", [])[:5],
+        },
+        "elapsed_s": elapsed,
+        "exit": exit_status,
         "aws_state": pkg.fake_backend.FileBackedFakeAWSBackend(state_path).snapshot_state(),
     }
 
@@ -3099,6 +4050,7 @@ def phase_shard(n: int, card: str) -> dict:
         SHARD_ENV[f"AGAC_LEASE_{k}"] for k in ("DURATION", "RENEW_DEADLINE", "RETRY_PERIOD")
     )
     start = time.monotonic()
+    LAST_METRICS.clear()
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as workdir:
         for width, kill_at in [*((w, None) for w in SHARD_WIDTHS), (2, SHARD_KILL_AT)]:
@@ -3149,6 +4101,8 @@ def phase_shard(n: int, card: str) -> dict:
             curve["4"]["efficiency"] >= SHARD_MIN_EFFICIENCY_4,
     }
     result = {"runs": runs, "curve": curve, "gates": gates, "wall_s": time.monotonic() - start}
+    result["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
+    print(stage_line("shard", result["stages"], card), flush=True)
     print(
         f"shard: curve {curve}; bench.py's gates (not enforced here, they measure the host's "
         f"cores): " + ", ".join(f"{k} {'met' if v else 'not met'}" for k, v in gates.items())
@@ -3163,10 +4117,13 @@ def phase_resize(n: int, card: str) -> dict:
     """The runbook's live resize through the port's command line;
     ``resize_fleet`` holds it to its hard bounds."""
     pkg = load(PORT)
+    LAST_METRICS.clear()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-resize-") as workdir:
         start = time.monotonic()
         run = resize_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
     run["wall_s"] = time.monotonic() - start
+    run["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
+    print(stage_line("resize", run["stages"], card), flush=True)
     kill, grow = run["kill"], run["grow_journeys"]
     print(
         f"resize: 2 x python -m {PORT} controller --shard-count {RESIZE_FROM} "
@@ -3203,11 +4160,14 @@ def phase_autoscale(card: str) -> dict:
     holds each to its hard bounds."""
     pkg = load(PORT)
     start = time.monotonic()
+    LAST_METRICS.clear()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-autoscale-") as workdir:
         runs = autoscale_runs(
             pkg, PORT, AUTOSCALE_BASE, AUTOSCALE_WAVE, SHARD_LATENCY, pathlib.Path(workdir)
         )
     runs["wall_s"] = time.monotonic() - start
+    runs["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
+    print(stage_line("autoscale (acting and observe-only)", runs["stages"], card), flush=True)
     acting, twin = runs["acting"], runs["observe-only"]
     out, scale_in = acting["scale_out"], acting["scale_in"]
     print(
@@ -3252,10 +4212,13 @@ def phase_teardown(n: int, card: str) -> dict:
     holds the run to its hard bounds."""
     pkg = load(PORT)
     start = time.monotonic()
+    LAST_METRICS.clear()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-teardown-") as workdir:
         run = teardown_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
     del run["aws_state"]
     run["wall_s"] = time.monotonic() - start
+    run["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
+    print(stage_line("teardown", run["stages"], card), flush=True)
     kill, gc = run["kill"], TEARDOWN_GC
     print(
         f"teardown: 2 x python -m {PORT} controller --shard-count 2 --shards-per-replica 2 "
@@ -3283,6 +4246,59 @@ def phase_teardown(n: int, card: str) -> dict:
         flush=True,
     )
     print("teardown " + json.dumps(run), flush=True)
+    return run
+
+
+def phase_drift(n: int, card: str) -> dict:
+    """Drift resync over the port's command line, with the holder of
+    shard 0 killed mid-repair and the bindings' finalizers run;
+    ``drift_fleet`` holds the run to its hard bounds."""
+    pkg = load(PORT)
+    start = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-drift-") as workdir:
+        run = drift_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
+    del run["aws_state"]
+    run["wall_s"] = time.monotonic() - start
+    kill = run["kill"]
+    ticks = "; ".join(
+        f"replica {r}: "
+        + ", ".join(
+            f"{t['tick_s']} s ({t['journeys']} drift journeys, reads "
+            + ", ".join(f"{op} {count}" for op, count in t["reads"].items()) + ")"
+            for t in tr["timed"]
+        )
+        + f" against the ceilings {tr['ceilings']}"
+        + (f", {tr['shared']} windows shared with other reconciles" if tr["shared"] else "")
+        for r, tr in run["ticks"].items()
+    )
+    repairs = ", ".join(
+        f"{r['kind']}@{r['shard']} {r['repair_s']} s (bound {r['bound_s']} s, by the {r['by']})"
+        for r in run["repairs"]
+    )
+    print(
+        f"drift: 2 x python -m {PORT} controller --shard-count 2 --shards-per-replica 2 "
+        f"--drift-resync-period {run['period_s']:g} ({SHARD_WORKERS} workers, {SHARD_LATENCY} s fake "
+        f"AWS latency, AGAC_DISCOVERY_CACHE_TTL={run['period_s']:g}), {n} Services + "
+        f"{run['ingresses']} Ingresses + {run['bindings']} bindings ({run['hostnames']} TXT+A pairs) "
+        f"converged {run['converge_s']} s after the first create; one tick: {ticks}; P = "
+        f"{run['period_s']:g} s = {run['period_over_tick']} x the longest tick ({run['tick_s']} s); "
+        f"{len(run['repairs'])} tampers in {run['tamper_s']} s, repaired: {repairs}; SIGKILL to "
+        f"replica {kill['victim']} (shards {kill['owned']}) {kill['at_s']} s after the tamper with "
+        f"{len(kill['open'])} of its shard's tampers open {kill['open']}; the survivor held both "
+        f"shards {kill['takeover_s']} s after the kill and closed its {kill['handoff_journeys']} "
+        f"handoff journeys {kill['adoption_tick_s']} s after that; every tamper repaired "
+        f"{run['repaired_s']} s "
+        f"after the tamper; bindings finalized {run['unbind_s']} s after their delete; journeys 0 "
+        f"on the survivor {run['journeys_settle_s']} s after calm; call rates at most "
+        f"{run['call_rates_max']} /s, AIMD ceiling sums at most {run['aimd_ceiling_sums_max']} /s "
+        f"(budget {SHARD_BUDGET_QPS}); watch {run['watch']['polls']} reads, at most "
+        f"{run['watch']['max_gap_s']} s apart, no duplicate; /debug/profile on the survivor: "
+        f"{run['profile']['samples']} samples in {run['profile']['seconds']:g} s; phase "
+        f"{run['wall_s']} s (host-bound, the card is idle in this phase) on {card}",
+        flush=True,
+    )
+    print(stage_line("drift", run["stages"], card), flush=True)
+    print("drift " + json.dumps(run), flush=True)
     return run
 
 
@@ -3448,7 +4464,8 @@ def phase_sim(n: int, card: str) -> dict:
     result["wall_s"] = time.monotonic() - start
     print(
         f"sim: replay, fuzz, rollout and shard-soak in {result['wall_s']} s wall (host-bound, "
-        f"the card is idle in this phase) on {card}",
+        f"the card is idle in this phase; stage attribution not measured: under the sim runtime "
+        f"the accountant charges virtual time and the sampler does not start) on {card}",
         flush=True,
     )
     print("sim " + json.dumps(result), flush=True)
@@ -3741,8 +4758,15 @@ def main(argv=None) -> int:
         phase_resize(SHARD_SERVICES, card)
         phase_autoscale(card)
         phase_teardown(SHARD_SERVICES, card)
-        phase_sim(args.sim_services, card)
-        phase_analysis(args.services, card)
+        # the sim is one thread on virtual time: it runs in a process of
+        # its own beside drift and analysis, whose fleets wait on the
+        # fake account's latency and the lease, on other cores
+        context = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(1, mp_context=context) as pool:
+            sim = pool.submit(phase_sim, args.sim_services, card)
+            phase_drift(SHARD_SERVICES, card)
+            phase_analysis(args.services, card)
+            sim.result()
         phase_graft(torch, args.seed, card)
     except Exception as err:  # every phase's failure ends the run here
         print(f"chip_smoke FAILED: {type(err).__name__}: {err}", file=sys.stderr, flush=True)

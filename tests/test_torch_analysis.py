@@ -43,8 +43,11 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 # serving, the quota slice of a drained dropped shard and the
 # autoscaler's fleet-wide cooldowns; the sweeper's teardown workers,
 # the disable's discovery refresh, the durable account's cursor pages,
-# the adoption's single read-plane drop that keeps known tags, and the
-# per-shard report store
+# the adoption's single read-plane drop that keeps known tags, the
+# per-shard report store; the renewal of a lease whose release waits on
+# a reconcile, the durable account's shared settle counts, the watch
+# that resumes after an idle read timeout, and the test apiserver's
+# check for a watch client gone
 PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.sharding.membership::ShardFilter.inflight",
     "agac_tpu.sharding.membership::ShardMembership._adopting",
@@ -74,6 +77,10 @@ PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.cloudprovider.aws.factory::adoption_hooks.resync",
     "agac_tpu.sharding.reports::store_shard_report",
     "agac_tpu.sharding.reports::_token_shards",
+    "agac_tpu.sharding.membership::ShardMembership._renew_releasing",
+    "agac_tpu.cloudprovider.aws.fake_backend::FileBackedFakeAWSBackend._settle_counts",
+    "agac_tpu.cluster.rest::RestClusterClient._open_watch",
+    "agac_tpu.cluster.testserver::_Handler._serve_watch.gone",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})
