@@ -69,11 +69,13 @@ write-through applied, never masked.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 from ... import clockseam
+from ...observability import instruments, trace
 
 from .errors import ListenerNotFoundException
 from .types import (
@@ -87,6 +89,42 @@ from .types import (
 )
 
 Snapshot = list[tuple[Accelerator, list[Tag]]]
+
+
+class _FlightTimer:
+    """Wall time of one cache's single-flight loads and of the callers
+    parked behind them, by the cache's name in ``read_plane_stats``:
+    the port-only histograms ``agac_read_plane_{load,wait}_seconds``
+    and, in a sampled reconcile, ``read-plane-load:<cache>`` /
+    ``read-plane-wait:<cache>`` trace spans.  Reads the cache's clock;
+    changes nothing the cache does."""
+
+    __slots__ = ("_clock", "_load", "_wait", "_load_span", "_wait_span")
+
+    def __init__(self, cache: str, clock: Callable[[], float]):
+        self._clock = clock
+        self._load = instruments.read_plane_load_seconds().labels(cache=cache)
+        self._wait = instruments.read_plane_wait_seconds().labels(cache=cache)
+        self._load_span = f"read-plane-load:{cache}"
+        self._wait_span = f"read-plane-wait:{cache}"
+
+    @contextlib.contextmanager
+    def loading(self) -> Iterator[None]:
+        """Time the leader's load, whether it returns or raises."""
+        start = self._clock()
+        try:
+            yield
+        finally:
+            end = self._clock()
+            self._load.observe(end - start)
+            trace.record(self._load_span, start, end)
+
+    def waited(self, parked_at: float) -> None:
+        """A caller parked behind a load is back; ``parked_at`` is the
+        cache's clock when it counted itself a waiter (under the lock)."""
+        end = self._clock()
+        self._wait.observe(end - parked_at)
+        trace.record(self._wait_span, parked_at, end)
 
 
 class HostedZoneCache:
@@ -116,6 +154,7 @@ class HostedZoneCache:
         self.hits = 0
         self.misses = 0
         self.waits = 0  # callers that parked behind another's load
+        self._timer = _FlightTimer("zones", self._clock)
 
     def stats(self) -> dict:
         with self._lock:
@@ -147,9 +186,12 @@ class HostedZoneCache:
                     break
                 event = self._load_event
                 self.waits += 1
+                parked_at = self._clock()
             event.wait()
+            self._timer.waited(parked_at)
         try:
-            zones = list(loader())
+            with self._timer.loading():
+                zones = list(loader())
         except BaseException:
             with self._lock:
                 self._load_event = None
@@ -234,6 +276,7 @@ class DiscoveryCache:
         self.stale_serves = 0  # expired snapshots served while degraded
         self.tag_full_refreshes = 0  # loads that re-read every tag set
         self.tag_incremental_loads = 0  # loads that reused known tags
+        self._timer = _FlightTimer("discovery", self._clock)
 
     def stats(self) -> dict:
         with self._lock:
@@ -330,11 +373,14 @@ class DiscoveryCache:
                     break
                 event = self._load_event
                 self.waits += 1
+                parked_at = self._clock()
             # another worker is already scanning: wait for its result,
             # then re-check (it may have failed — then we lead a retry)
             event.wait()
+            self._timer.waited(parked_at)
         try:
-            snapshot = list(loader())
+            with self._timer.loading():
+                snapshot = list(loader())
         except BaseException:
             with self._lock:
                 self._load_event = None
@@ -600,6 +646,7 @@ class AcceleratorTopologyCache:
         self.verifies = 0   # cheap single-read verifies
         self.misses = 0     # full relists
         self.waits = 0      # callers parked behind another's load
+        self._timer = _FlightTimer("topology", self._clock)
 
     def stats(self) -> dict:
         with self._lock:
@@ -636,6 +683,7 @@ class AcceleratorTopologyCache:
                 if entry is not None and entry.load_event is not None:
                     event = entry.load_event
                     self.waits += 1
+                    parked_at = now
                 else:
                     if entry is None:
                         entry = self._entries[arn] = _TopologyEntry()
@@ -645,22 +693,24 @@ class AcceleratorTopologyCache:
                     cached_listener = entry.listener
                     break
             event.wait()
+            self._timer.waited(parked_at)
 
         full = not cheap
         try:
-            if cheap:
-                self.verifies += 1
-                try:
-                    listener = cached_listener
-                    endpoint_group = verify_loader(cached_listener)
-                except ListenerNotFoundException:
-                    # the write-through listener vanished out-of-band:
-                    # relist in the same flight (it may have been
-                    # recreated with a new arn by another actor)
-                    full = True
-            if full:
-                self.misses += 1
-                listener, endpoint_group = full_loader(arn)
+            with self._timer.loading():
+                if cheap:
+                    self.verifies += 1
+                    try:
+                        listener = cached_listener
+                        endpoint_group = verify_loader(cached_listener)
+                    except ListenerNotFoundException:
+                        # the write-through listener vanished out-of-band:
+                        # relist in the same flight (it may have been
+                        # recreated with a new arn by another actor)
+                        full = True
+                if full:
+                    self.misses += 1
+                    listener, endpoint_group = full_loader(arn)
         except BaseException as err:
             with self._lock:
                 entry.load_event = None
@@ -845,6 +895,7 @@ class RecordSetCache:
         self.misses = 0
         self.waits = 0
         self.stale_serves = 0  # expired snapshots served while degraded
+        self._timer = _FlightTimer("record_sets", self._clock)
 
     def stats(self) -> dict:
         with self._lock:
@@ -880,9 +931,12 @@ class RecordSetCache:
                     break
                 event = in_flight[0]
                 self.waits += 1
+                parked_at = self._clock()
             event.wait()
+            self._timer.waited(parked_at)
         try:
-            snapshot = list(loader())
+            with self._timer.loading():
+                snapshot = list(loader())
         except BaseException:
             with self._lock:
                 self._loading.pop(zone_id, None)

@@ -47,6 +47,7 @@ from typing import Callable, Optional
 
 from ... import clockseam
 from ...analysis import racecheck
+from ...observability import instruments
 from .api import ELBv2API, GlobalAcceleratorAPI, Route53API
 from .errors import (
     AWSAPIError,
@@ -1341,6 +1342,9 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
         # several ops reentrancy-safe within one thread
         self._ipc_lock_path = f"{self._state_path}.lock"
         self._ipc_depth = threading.local()
+        # port-only: seconds waited for the flock and held, registered
+        # only where a file-backed fake is built
+        self._lock_seconds = instruments.fake_aws_lock_seconds()
         self._persist_hook = self._persisted
         self._reload_if_changed()
 
@@ -1357,7 +1361,9 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
                 import fcntl
 
                 self._f = open(backend._ipc_lock_path, "a+")
+                self._asked = clockseam.monotonic()
                 fcntl.flock(self._f, fcntl.LOCK_EX)
+                self._acquired = clockseam.monotonic()
                 return self
 
             def __exit__(self, *exc):
@@ -1366,9 +1372,18 @@ class FileBackedFakeAWSBackend(FakeAWSBackend):
                     import fcntl
 
                     fcntl.flock(self._f, fcntl.LOCK_UN)
+                    released = clockseam.monotonic()
                     self._f.close()
+                    backend._lock_observed(self._asked, self._acquired, released)
 
         return _Held()
+
+    def _lock_observed(self, asked: float, acquired: float, released: float) -> None:
+        """Observe one outermost hold of the flock, once it is released
+        (so the observation adds nothing inside it): the seconds waited
+        for it and the seconds held."""
+        self._lock_seconds.labels(phase="wait").observe(acquired - asked)
+        self._lock_seconds.labels(phase="held").observe(released - acquired)
 
     # -- the API-op seam (installed via _persist_hook) ------------------
     def _persisted(self, name: str, call):

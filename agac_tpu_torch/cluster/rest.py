@@ -29,9 +29,10 @@ import time
 import urllib.request
 from typing import Any, Callable, Iterator, Optional
 
-from .. import klog
+from .. import clockseam, klog
 from ..apis.endpointgroupbinding import EndpointGroupBinding
 from ..errors import AlreadyExistsError, ConflictError, NotFoundError
+from ..observability import instruments, trace
 from .client import ClusterClient, WatchEvent
 from .objects import Event, Ingress, Lease, Service
 from .serde import from_wire, to_wire
@@ -101,6 +102,7 @@ class RestClusterClient(ClusterClient):
         self._token_provider = token_provider
         self._ssl_context = ssl_context
         self._transport = transport or self._default_transport
+        self._requests = instruments.apiserver_request_duration_seconds()
 
     # ------------------------------------------------------------------
     # transport
@@ -134,8 +136,26 @@ class RestClusterClient(ClusterClient):
             data = json.dumps(body).encode()
         return self._send_with_auth_retry(method, url, headers, data, timeout, stream)
 
+    def _timed_send(self, method, url, headers, data, timeout, stream):
+        """One wire request, observed in
+        ``agac_apiserver_request_duration_seconds`` (a watch until its
+        response headers) and, in a sampled reconcile, as an
+        ``apiserver:<verb>`` span."""
+        verb = "WATCH" if stream else method
+        code = "error"
+        start = clockseam.monotonic()
+        try:
+            status, payload = self._transport(method, url, headers, data, timeout, stream)
+            code = f"{status // 100}xx"
+            return status, payload
+        finally:
+            end = clockseam.monotonic()
+            self._requests.labels(verb=verb, code=code).observe(end - start)
+            if trace.current() is not None:
+                trace.record(f"apiserver:{verb}", start, end, {"code": code})
+
     def _send_with_auth_retry(self, method, url, headers, data, timeout, stream):
-        status, payload = self._transport(method, url, headers, data, timeout, stream)
+        status, payload = self._timed_send(method, url, headers, data, timeout, stream)
         if status == 401 and self._token_provider is not None:
             # the server rejected the cached credential (early
             # revocation, clock skew): force a refresh and retry once,
@@ -150,7 +170,7 @@ class RestClusterClient(ClusterClient):
                     # refresh yielded nothing — never resend the header
                     # the server just rejected
                     headers.pop("Authorization", None)
-                status, payload = self._transport(
+                status, payload = self._timed_send(
                     method, url, headers, data, timeout, stream
                 )
         return status, payload

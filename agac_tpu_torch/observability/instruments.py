@@ -883,3 +883,81 @@ def register_all(registry: Optional[MetricsRegistry] = None) -> MetricsRegistry:
     explain_instruments(reg)
     capture_instruments(reg)
     return reg
+
+
+# ---------------------------------------------------------------------------
+# port-only instruments: wall time where the port waits, outside
+# ``register_all`` (so the generated catalog stays the reference's);
+# README.md documents them ("Port-only instruments")
+# ---------------------------------------------------------------------------
+
+
+def read_plane_load_seconds(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.histogram(
+        "agac_read_plane_load_seconds",
+        "Wall seconds of each single-flight read-plane load (the leader's "
+        "loader call: a discovery snapshot's pages and tag reads, a zone "
+        "list, a chain relist or verify, a zone's record sets), per cache",
+        labels=("cache",),
+        buckets=_CALL_BUCKETS,
+    )
+
+
+def read_plane_wait_seconds(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.histogram(
+        "agac_read_plane_wait_seconds",
+        "Wall seconds a caller stayed parked behind another caller's "
+        "single-flight read-plane load, per cache",
+        labels=("cache",),
+        buckets=_CALL_BUCKETS,
+    )
+
+
+def pending_settle_wait_seconds(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.histogram(
+        "agac_pending_settle_wait_seconds",
+        "Seconds an item stayed parked in the pending-settle table, from "
+        "park to leaving it, by wait group and outcome (ready / failed / "
+        "expired when it resolves, replaced by a re-park, discarded when "
+        "dropped unresolved)",
+        labels=("group", "outcome"),
+        buckets=_DURATION_BUCKETS,
+    )
+
+
+def apiserver_request_duration_seconds(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.histogram(
+        "agac_apiserver_request_duration_seconds",
+        "Wall seconds of each request to the Kubernetes API server on the "
+        "wire, by verb (the HTTP method, WATCH for a stream, timed to its "
+        "response headers) and status class (2xx / 4xx / 5xx, error when "
+        "no response came); a retried 401 counts twice",
+        labels=("verb", "code"),
+        buckets=_CALL_BUCKETS,
+    )
+
+
+def fake_aws_lock_seconds(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.histogram(
+        "agac_fake_aws_lock_seconds",
+        "The durable fake AWS account's interprocess lock: seconds waited "
+        "for it (wait) and held (held), per outermost acquisition; "
+        "registered only by a process that builds the file-backed fake",
+        labels=("phase",),
+        buckets=_CALL_BUCKETS,
+    )
+
+
+# (family name, the accessor that registers it)
+PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Metric]], ...] = (
+    ("agac_read_plane_load_seconds", read_plane_load_seconds),
+    ("agac_read_plane_wait_seconds", read_plane_wait_seconds),
+    ("agac_pending_settle_wait_seconds", pending_settle_wait_seconds),
+    ("agac_apiserver_request_duration_seconds", apiserver_request_duration_seconds),
+    ("agac_fake_aws_lock_seconds", fake_aws_lock_seconds),
+)

@@ -86,6 +86,10 @@ class Trace:
             return {
                 "controller": self.controller,
                 "key": self.key,
+                # the start on the process clock (clockseam.monotonic:
+                # CLOCK_MONOTONIC in production), so a line from any
+                # process of one host lines up with the others'
+                "t0": round(self.start, 6),
                 "dur": round(max(0.0, self.end - self.start), 6),
                 "spans": [s.to_dict(self.start) for s in self.spans],
                 **self.attrs,
@@ -165,6 +169,18 @@ def record_call(service: str, op: str, start: float, end: float, outcome: str) -
     if trace is None:
         return
     trace.add_span(Span(f"aws:{service}.{op}", start, end, {"outcome": outcome}))
+
+
+def record(name: str, start: float, end: float, attrs: Optional[dict] = None) -> None:
+    """Attach a completed span to the current trace: the read plane's
+    loads and parked waits (``read-plane-load:<cache>``,
+    ``read-plane-wait:<cache>``) and the API server's requests
+    (``apiserver:<verb>``), timed by the caller with the timestamps it
+    feeds its own histogram.  No trace, no allocation."""
+    trace = current()
+    if trace is None:
+        return
+    trace.add_span(Span(name, start, end, attrs))
 
 
 def _default_emit(payload: dict) -> None:

@@ -141,6 +141,9 @@ class PendingSettleTable:
         )
         self._m_parked = metrics.pending_parked
         self._m_resolved = metrics.pending_resolved
+        # port-only: park to leaving the table, by group and outcome
+        # (every exit: resolved, replaced by a re-park, or discarded)
+        self._m_waited = instruments.pending_settle_wait_seconds(registry)
 
     # ------------------------------------------------------------------
     # registration + parking
@@ -174,12 +177,13 @@ class PendingSettleTable:
             controller=controller,
         )
         with self._lock:
-            for state in self._groups.values():
-                state.entries.pop(key, None)
+            replaced = self._pop_locked(key)
             self._groups.setdefault(wait.group, _GroupState()).entries[key] = entry
             self.parked_total += 1
             self.max_depth = max(self.max_depth, self._depth_locked())
         self._m_parked.labels(group=wait.group).inc()
+        for old in replaced:
+            self._observe_wait(old, "replaced", now)
 
     def parked_info(self, key: str) -> Optional[dict]:
         """If ``key`` is parked, its wait's shape (group, token,
@@ -213,8 +217,14 @@ class PendingSettleTable:
         """Drop a parked entry without requeueing (the item was
         re-enqueued by an external event and already re-ran)."""
         with self._lock:
-            for state in self._groups.values():
-                state.entries.pop(key, None)
+            dropped = self._pop_locked(key)
+        for entry in dropped:
+            self._observe_wait(entry, "discarded")
+
+    def _pop_locked(self, key: str) -> list:
+        """Remove ``key``'s entry from every group; the entries removed."""
+        popped = (state.entries.pop(key, None) for state in self._groups.values())
+        return [entry for entry in popped if entry is not None]
 
     def reset(self) -> None:
         """Drop EVERY parked entry without requeueing — process death
@@ -223,8 +233,11 @@ class PendingSettleTable:
         generation's relist, so entries referencing a dead generation's
         queues must not be polled on its behalf."""
         with self._lock:
+            dropped = [e for state in self._groups.values() for e in state.entries.values()]
             for state in self._groups.values():
                 state.entries.clear()
+        for entry in dropped:
+            self._observe_wait(entry, "discarded")
 
     # ------------------------------------------------------------------
     # the poll tick
@@ -251,6 +264,7 @@ class PendingSettleTable:
                     self._remove(entry)
                     self.expired_total += 1
                     report["expired"] += 1
+                    self._observe_wait(entry, "expired")
                     # expiry is failure-shaped: the wait never resolved,
                     # so the retry backs off like any failing item
                     self._requeue(entry, failed=True,
@@ -288,6 +302,7 @@ class PendingSettleTable:
                     self.resolved_total += 1
                     report["resolved"] += 1
                     self._m_resolved.labels(group=name, outcome="ready").inc()
+                    self._observe_wait(entry, "ready")
                     self._requeue(entry, failed=False,
                                   stage=journey.STAGE_SETTLE_RESOLVED)
                 elif outcome == SETTLE_FAILED:
@@ -295,11 +310,23 @@ class PendingSettleTable:
                     self.failed_total += 1
                     report["failed"] += 1
                     self._m_resolved.labels(group=name, outcome="failed").inc()
+                    self._observe_wait(entry, "failed")
                     self._requeue(entry, failed=True,
                                   stage=journey.STAGE_SETTLE_FAILED)
                 else:
                     report["pending"] += 1
         return report
+
+    def _observe_wait(self, entry: _Parked, outcome: str,
+                      now: Optional[float] = None) -> None:
+        """Observe ``entry``'s park-to-leaving seconds under ``outcome``:
+        ready / failed / expired when it resolves, replaced when a
+        re-park supersedes it, discarded when it is dropped unresolved."""
+        if now is None:
+            now = self._clock()
+        self._m_waited.labels(group=entry.group, outcome=outcome).observe(
+            now - entry.parked_at
+        )
 
     def _remove(self, entry: _Parked) -> None:
         with self._lock:

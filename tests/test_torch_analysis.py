@@ -81,6 +81,20 @@ PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.cloudprovider.aws.fake_backend::FileBackedFakeAWSBackend._settle_counts",
     "agac_tpu.cluster.rest::RestClusterClient._open_watch",
     "agac_tpu.cluster.testserver::_Handler._serve_watch.gone",
+    # the port-only wall-time instruments and the trace spans they feed
+    "agac_tpu.observability.instruments::read_plane_load_seconds",
+    "agac_tpu.observability.instruments::read_plane_wait_seconds",
+    "agac_tpu.observability.instruments::pending_settle_wait_seconds",
+    "agac_tpu.observability.instruments::apiserver_request_duration_seconds",
+    "agac_tpu.observability.instruments::fake_aws_lock_seconds",
+    "agac_tpu.observability.trace::record",
+    "agac_tpu.cloudprovider.aws.cache::_FlightTimer.__init__",
+    "agac_tpu.cloudprovider.aws.cache::_FlightTimer.loading",
+    "agac_tpu.cloudprovider.aws.cache::_FlightTimer.waited",
+    "agac_tpu.reconcile.pending::PendingSettleTable._observe_wait",
+    "agac_tpu.reconcile.pending::PendingSettleTable._pop_locked",
+    "agac_tpu.cluster.rest::RestClusterClient._timed_send",
+    "agac_tpu.cloudprovider.aws.fake_backend::FileBackedFakeAWSBackend._lock_observed",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})

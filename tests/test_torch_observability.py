@@ -4,7 +4,9 @@ Prometheus exposition text, and the full instrument catalog (every
 family ``register_all`` builds) has the same names, types, labels and
 help text in both.  Metric names are part of the port's public
 surface: dashboards and alerts written for the reference must read the
-port unchanged."""
+port unchanged.  The port's own families (``instruments.PORT_ONLY``,
+the wall-time histograms of its waits) stay outside ``register_all``,
+each registered by its own accessor alone."""
 
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ def test_same_operations_give_the_same_exposition():
     assert _metrics("agac_tpu_torch").parse_text(port) == _metrics("agac_tpu").parse_text(ref)
 
 
+def _port_only() -> dict:
+    instruments = importlib.import_module("agac_tpu_torch.observability.instruments")
+    return dict(instruments.PORT_ONLY)
+
+
 @pytest.mark.parametrize("view", ["describe", "render"])
 def test_instrument_catalog_is_identical(view):
     def catalog(package):
@@ -56,3 +63,16 @@ def test_instrument_catalog_is_identical(view):
     ref, port = catalog("agac_tpu"), catalog("agac_tpu_torch")
     assert len(ref) > 0
     assert port == ref
+
+
+@pytest.mark.parametrize("family", sorted(_port_only()))
+def test_port_only_family_is_registered_by_its_accessor_alone(family):
+    metrics = _metrics("agac_tpu_torch")
+    instruments = importlib.import_module("agac_tpu_torch.observability.instruments")
+    registry = metrics.MetricsRegistry()
+    _port_only()[family](registry)
+    assert [d["name"] for d in registry.describe()] == [family]
+    # outside the generated catalog, so docs/operations.md's block stays the reference's
+    assert instruments.register_all(metrics.MetricsRegistry()).get(family) is None
+    assert importlib.import_module("agac_tpu.observability.instruments").register_all(
+        _metrics("agac_tpu").MetricsRegistry()).get(family) is None
