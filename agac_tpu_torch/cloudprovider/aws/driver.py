@@ -1098,7 +1098,9 @@ class AWSDriver:
             self.ga.delete_listener(listener.listener_arn)
             klog.infof("Listener is deleted: %s", listener.listener_arn)
         if accelerator is not None:
-            self._delete_accelerator(accelerator.accelerator_arn)
+            self._delete_accelerator(
+                accelerator, chain_deleted=bool(listeners or endpoint_groups)
+            )
 
     def _list_related(
         self, arn: str
@@ -1139,27 +1141,35 @@ class AWSDriver:
             )
         return accelerator, listeners, endpoint_groups
 
-    def _delete_accelerator(self, arn: str) -> None:
+    def _delete_accelerator(self, accelerator: Accelerator, chain_deleted: bool) -> None:
         """Disable → wait until DEPLOYED → delete
         (reference ``global_accelerator.go:724-765``; 10 s / 3 min).
 
-        Resumable by design: the current state is read first, so a
-        re-entered teardown (pending-settle requeue, crash recovery)
-        skips the disable it already committed instead of re-disabling
-        and resetting the settle clock.  With the pending-settle table
-        wired the wait PARKS the item (SettleWait — the poll-tick
+        ``accelerator`` is the state the caller read at the start of
+        this pass.  Resumable by design: the teardown acts on that
+        state, so a re-entered teardown (pending-settle requeue, crash
+        recovery) skips the disable it already committed instead of
+        re-disabling and resetting the settle clock.  It is read again
+        only where it may be stale: a disabled accelerator whose status
+        may have moved while this pass deleted its chain
+        (``chain_deleted``).  An enabled one is disabled at once (the
+        chain deletes cannot enable it, and a disable is idempotent),
+        and the disable's response is the state after it: two reads
+        fewer than the reference's teardown.  With the pending-settle
+        table wired the wait PARKS the item (SettleWait — the poll-tick
         scheduler re-checks every parked chain in one coalesced
         ListAccelerators and requeues on DEPLOYED) and the worker goes
         back to the queue; without it, the reference-parity blocking
         poll runs, bounded by the reconcile deadline as before."""
-        accelerator = self.ga.describe_accelerator(arn)
+        arn = accelerator.accelerator_arn
+        if chain_deleted and not accelerator.enabled:
+            accelerator = self.ga.describe_accelerator(arn)
         if accelerator.enabled:
             klog.infof("Disabling Global Accelerator %s", arn)
-            self.ga.update_accelerator(arn, enabled=False)
+            accelerator = self.ga.update_accelerator(arn, enabled=False)
             if not self._refresh_discovery_on_disable:
                 self._invalidate_discovery()
-            accelerator = self.ga.describe_accelerator(arn)
-            if self._refresh_discovery_on_disable and self._discovery_cache is not None:
+            elif self._discovery_cache is not None:
                 self._discovery_cache.refresh(accelerator)
         if accelerator.status != ACCELERATOR_STATUS_DEPLOYED:
             if self._settle_table is not None:

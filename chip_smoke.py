@@ -135,7 +135,7 @@ Phases, in order; any failure exits non-zero before the last line:
    standard scenario's seeds 1-5 at ``quick`` and seed 1 of the
    resize, autoscale and autoscale-brownout scenarios at ``mini``, and
    requires clean oracles and the trace hashes pinned in
-   ``FUZZ_PINS``; ``rollout`` brings a fleet of ``--sim-services``
+   ``PORT_FUZZ_PINS``; ``rollout`` brings a fleet of ``--sim-services``
    Services (default 10,000, the sim's documented scale) up over two
    virtual hours on two replicas, runs to quiescence and requires
    clean oracles, a complete accelerator chain per Service, the
@@ -145,8 +145,13 @@ Phases, in order; any failure exits non-zero before the last line:
    kills a replica at virtual hour 3 and requires clean oracles and
    SLOs, every journey closed, one accelerator per Service, one owner
    of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
-   hash.  The pins are what the reference package computes for the
-   same runs.  Host code: the card is idle in this phase.
+   hash.  The rollout and soak pins are what the reference package
+   computes for the same runs.  Every fuzz scenario tears chains
+   down, where the port makes two accelerator reads fewer than the
+   reference, so the port's fuzz pins are its own (``FUZZ_PINS`` holds
+   the reference's); ``tests/test_torch_sim.py`` holds each of those
+   runs to the reference's outcome on the CPU.  Host code: the card is
+   idle in this phase.
 10. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
@@ -407,6 +412,36 @@ FUZZ_PINS = {
     ),
     ("autoscale-brownout", 1, "mini"): (
         "621f77d959c54831cabbe0a6f3706bedf8a5209e855f04a44aedd9cf4f0c9c40"
+    ),
+}
+# the same scenarios -> the port's event-trace hash: its teardown
+# makes two accelerator reads fewer than the reference's, and every
+# scenario deletes objects (tests/test_torch_sim.py holds each run to
+# the reference's outcome)
+PORT_FUZZ_PINS = {
+    ("standard", 1, "quick"): (
+        "cc1a56bbda481217c9bf7a080defe75d99d0be9b77c0c0df03b6937303354da1"
+    ),
+    ("standard", 2, "quick"): (
+        "2facba7c7d49fad784b0e3a5fb4b077917f70205ac169390a9351faef3d341f9"
+    ),
+    ("standard", 3, "quick"): (
+        "c176b77042fa0a1823012883fd5cb9dd7c965993d55124be8b6d7a501122320c"
+    ),
+    ("standard", 4, "quick"): (
+        "efff544fd30da0f4db7beed58d9f94bf8f39d95d3cda053ad1020767e9d74a39"
+    ),
+    ("standard", 5, "quick"): (
+        "9dc92c12761d5835dd509031f334b170006d6b395db5b6b115d7b220f3d2f2c6"
+    ),
+    ("resize", 1, "mini"): (
+        "27e5f94a0668f6d97e7baef6de5ef6991d3d98766056c313e0048909a39aee4d"
+    ),
+    ("autoscale", 1, "mini"): (
+        "f1d1d0475f9c1c5a8f646a3f7bee5d927ff056e304a0ef7fd370008eeb0213f1"
+    ),
+    ("autoscale-brownout", 1, "mini"): (
+        "4ab2cdb59a17ecc007e4c3c31298906f1f4bd4dbe85d369db3ded51beb03460e"
     ),
 }
 # Services in the rollout -> the reference's event-trace hash
@@ -4336,9 +4371,10 @@ def sim_replay(pkg, card: str) -> list[dict]:
 
 
 def sim_fuzz(pkg, card: str) -> list[dict]:
-    """The pinned scenarios: each clean, each with its pinned hash."""
+    """The pinned scenarios: each clean, each with the port's pinned
+    hash."""
     out = []
-    for (scenario, seed, profile), pinned in FUZZ_PINS.items():
+    for (scenario, seed, profile), pinned in PORT_FUZZ_PINS.items():
         start = time.monotonic()
         result = run_fuzz(pkg, scenario, seed, profile)
         wall = time.monotonic() - start

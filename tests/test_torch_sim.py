@@ -1,5 +1,6 @@
 """Differential check of the port's simulation slice against the
-reference, hash for hash.
+reference: hash for hash where no chain is torn down, outcome for
+outcome where one is.
 
 The sim runs the whole Manager on one thread in virtual time and folds
 every dispatched event into a SHA-256 trace hash, so two packages that
@@ -7,14 +8,26 @@ give the same hash for the same seeded scenario made the same calls,
 saw the same outcomes and dispatched the same events in the same
 order.  The checks here drive both packages through the same entry
 points (``chip_smoke.py``'s scenario runner and rollout, the capture
-recorder and ``replay_capture``) and require equal hashes, equal
-oracle verdicts and equal run statistics; captures must cross-replay
-byte-identically in both directions; the hashes ``chip_smoke.py``
-pins must be the reference's; and the port's hashes must not depend
-on ``PYTHONHASHSEED``."""
+recorder and ``replay_capture``).  The capture replays, the
+cross-replays and the rollout tear nothing down and require equal
+hashes and equal run statistics; captures must cross-replay
+byte-identically in both directions.
+
+The port's accelerator teardown leaves out two ``DescribeAccelerator``
+re-reads the reference makes, so every fuzz scenario, each of which
+deletes objects, has a trace of its own in the port.  Those are held
+to the reference's result instead: both oracle verdict lists empty,
+an equal final AWS world in canonical form (ARNs replaced by owner
+keys), equal counts of every mutating call, and fewer
+``DescribeAccelerator`` calls in the port.  The hashes
+``chip_smoke.py`` pins for the reference (``FUZZ_PINS``) must be the
+reference's, those it pins for the port (``PORT_FUZZ_PINS``) the
+port's; and the port's hashes must not depend on ``PYTHONHASHSEED``."""
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import importlib
 import os
@@ -24,6 +37,8 @@ import subprocess
 import sys
 
 import pytest
+
+from .test_torch_manager import canonical_aws
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BASELINE = REPO / "tests" / "captures" / "converge-baseline.jsonl"
@@ -48,11 +63,63 @@ def smoke():
     return importlib.import_module("chip_smoke")
 
 
+# the fake backend's call names of the operations that change AWS
+MUTATING = ("Create", "Update", "Delete", "Add", "Remove", "Change", "Tag", "Untag")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Played:
+    trace_hash: str
+    violations: list
+    stats: dict
+    world: dict  # the final AWS world, canonical
+    ops: collections.Counter  # every call to the fake account, by name
+
+    def mutating(self) -> dict:
+        return {op: n for op, n in self.ops.items() if op.startswith(MUTATING)}
+
+
 @functools.lru_cache(maxsize=None)
-def _fuzz(package: str, scenario: str, seed: int, profile: str) -> tuple:
+def _fuzz(package: str, scenario: str, seed: int, profile: str) -> _Played:
+    """One scenario through ``package``, with the AWS world and call
+    counts its harness ends with (read as the harness closes)."""
     smoke = importlib.import_module("chip_smoke")
-    result = smoke.run_fuzz(smoke.load(package), scenario, seed, profile)
-    return result.trace_hash, result.violations, result.stats
+    fuzz = importlib.import_module(f"{package}.sim.fuzz")
+    ends = []
+
+    class Harness(fuzz.SimHarness):
+        def __exit__(self, *exc):
+            ends.append(
+                (
+                    canonical_aws(self.aws.snapshot_state()),
+                    collections.Counter(call[0] for call in self.aws.calls),
+                )
+            )
+            return super().__exit__(*exc)
+
+    plain, fuzz.SimHarness = fuzz.SimHarness, Harness
+    try:
+        result = smoke.run_fuzz(smoke.load(package), scenario, seed, profile)
+    finally:
+        fuzz.SimHarness = plain
+    ((world, ops),) = ends
+    return _Played(result.trace_hash, result.violations, result.stats, world, ops)
+
+
+def _same_outcome(port: _Played, ref: _Played) -> None:
+    """The port's run ends as the reference's: clean, the same world,
+    the same mutations, fewer accelerator re-reads, and the same run
+    statistics but for the counts of AWS calls and of dispatched
+    events (the fake settles a disable by counting reads, so without
+    the reference's re-read a parked teardown may wait one poll more)."""
+    assert port.violations == ref.violations == []
+    assert port.world == ref.world
+    assert port.mutating() == ref.mutating()
+    assert ref.ops["DeleteAccelerator"] > 0
+    assert port.ops["DescribeAccelerator"] < ref.ops["DescribeAccelerator"]
+    assert port.stats["aws_calls"] < ref.stats["aws_calls"]
+    counts = {"aws_calls": None, "events": None}
+    assert {**port.stats, **counts} == {**ref.stats, **counts}
 
 
 def _replay(package: str, path: pathlib.Path):
@@ -76,16 +143,22 @@ def test_checked_in_capture_replays_like_the_reference():
 
 @pytest.mark.parametrize("scenario", MINI_SCENARIOS, ids=lambda s: f"{s[0]}-{s[1]}-{s[2]}")
 def test_scenario_matches_the_reference(scenario):
-    port_hash, port_violations, port_stats = _fuzz(PORT, *scenario)
-    ref_hash, ref_violations, ref_stats = _fuzz(REF, *scenario)
-    assert port_hash == ref_hash
-    assert port_violations == ref_violations == []
-    assert port_stats == ref_stats
+    _same_outcome(_fuzz(PORT, *scenario), _fuzz(REF, *scenario))
 
 
 def test_pinned_scenario_hashes_are_the_reference(smoke):
-    computed = {key: _fuzz(REF, *key)[0] for key in smoke.FUZZ_PINS}
+    computed = {key: _fuzz(REF, *key).trace_hash for key in smoke.FUZZ_PINS}
     assert computed == smoke.FUZZ_PINS
+
+
+def test_pinned_port_scenario_hashes_are_the_port(smoke):
+    """``chip_smoke.py``'s sim phase holds the port to these on the
+    card; each pinned scenario ends as the reference's."""
+    assert smoke.PORT_FUZZ_PINS.keys() == smoke.FUZZ_PINS.keys()
+    computed = {key: _fuzz(PORT, *key).trace_hash for key in smoke.PORT_FUZZ_PINS}
+    assert computed == smoke.PORT_FUZZ_PINS
+    for key in smoke.PORT_FUZZ_PINS:
+        _same_outcome(_fuzz(PORT, *key), _fuzz(REF, *key))
 
 
 def test_rollout_matches_the_reference(smoke):
@@ -174,7 +247,7 @@ def test_port_hash_does_not_depend_on_the_hash_seed():
             run.kill()
     assert [run.returncode for run in runs] == [0, 0], outputs
     traces = [re.findall(r"trace=([0-9a-f]{16})", out) for out in outputs]
-    expected = _fuzz(REF, "standard", 1, "mini")[0][:16]
+    expected = _fuzz(PORT, "standard", 1, "mini").trace_hash[:16]
     assert traces == [[expected], [expected]]
 
 
