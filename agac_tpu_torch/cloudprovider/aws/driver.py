@@ -512,6 +512,21 @@ class AWSDriver:
         if self._discovery_cache is not None:
             self._discovery_cache.upsert(accelerator, tags)
 
+    def _discovery_retagged(
+        self, accelerator: Accelerator, tags: list[Tag], written: list[Tag]
+    ) -> None:
+        """Fold an accelerator-level repair into the discovery snapshot:
+        the accelerator as its update returned it, ``written`` merged
+        over the snapshot's ``tags`` as TagResource merges them.  The
+        reference drops the whole snapshot here instead, so its next
+        load re-reads every accelerator's tags: a ListTagsForResource
+        per accelerator (1,200 on the documented fleet) for each
+        out-of-band disable repaired."""
+        keys = {tag.key for tag in written}
+        self._discovery_upsert(
+            accelerator, [tag for tag in tags if tag.key not in keys] + written
+        )
+
     def _discovery_remove(self, arn: str) -> None:
         if self._discovery_cache is not None:
             self._discovery_cache.remove(arn)
@@ -892,23 +907,20 @@ class AWSDriver:
         arn = accelerator.accelerator_arn
         if self._accelerator_changed(resource, obj, accelerator, tags, lb.dns_name):
             klog.infof("Updating Global Accelerator %s", arn)
-            self.ga.update_accelerator(
+            updated = self.ga.update_accelerator(
                 arn, name=accelerator_name(resource, obj), enabled=True
             )
             # cluster tag deliberately not re-applied, matching the
             # reference's updateAccelerator tag list
             # (``global_accelerator.go:696-718``); tag_resource merges,
             # so the original cluster tag survives.
-            self.ga.tag_resource(
-                arn,
-                [
-                    Tag(MANAGED_TAG_KEY, "true"),
-                    Tag(OWNER_TAG_KEY, accelerator_owner_tag_value(resource, ns, name)),
-                    Tag(TARGET_HOSTNAME_TAG_KEY, lb.dns_name),
-                ]
-                + accelerator_tags_from_annotations(obj),
-            )
-            self._invalidate_discovery()
+            written = [
+                Tag(MANAGED_TAG_KEY, "true"),
+                Tag(OWNER_TAG_KEY, accelerator_owner_tag_value(resource, ns, name)),
+                Tag(TARGET_HOSTNAME_TAG_KEY, lb.dns_name),
+            ] + accelerator_tags_from_annotations(obj)
+            self.ga.tag_resource(arn, written)
+            self._discovery_retagged(updated, tags, written)
 
         try:
             listener, endpoint_group = self._verified_chain(arn)

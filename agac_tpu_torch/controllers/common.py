@@ -10,6 +10,7 @@ Route53 hostname-annotation pair (``route53/controller.go:243-252``).
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -20,10 +21,12 @@ from ..cloudprovider.aws import AWSDriver, get_lb_name_from_hostname
 from ..cloudprovider.aws.health import CircuitOpenError
 from ..cluster.informer import Tombstone
 from ..cluster.objects import meta_namespace_key
+from ..observability import instruments
 from ..observability import journey as obs_journey
 from ..observability import profile as obs_profile
 from ..observability import slo as obs_slo
 from ..reconcile import RateLimitingQueue, Result, process_next_work_item
+from ..reconcile import workqueue
 
 # One driver per region; GA/Route53 are global services pinned to
 # us-west-2 in the reference (``pkg/cloudprovider/aws/aws.go:26-32``).
@@ -261,7 +264,8 @@ def start_drift_resync(
         return None
 
     def loop():
-        while not stop.wait(period):
+        schedule = _TickSchedule(period)
+        while not stop.wait(schedule.until_next()):
             if obs_slo.should_shed("drift-resync"):
                 # burn-rate shedding: sustained convergence
                 # SLO burn defers drift verification — repair latency
@@ -269,7 +273,9 @@ def start_drift_resync(
                 klog.warningf(
                     "drift resync %s: shed under SLO budget burn", name
                 )
+                _DriftTick.shed(name)
                 continue
+            tick = _DriftTick(name)
             for lister, predicate, enqueue in sources:
                 try:
                     for obj in lister.list():
@@ -277,12 +283,74 @@ def start_drift_resync(
                             enqueue(obj)
                 except Exception as err:  # a bad tick must not kill the ticker
                     klog.errorf("drift resync %s failed: %s", name, err)
+            tick.close()
 
     thread = threading.Thread(
         target=loop, daemon=True, name=f"{name}-drift-resync"
     )
     thread.start()
     return thread
+
+
+class _TickSchedule:
+    """Port-only: the ticker's deadlines, whole periods from its start,
+    so that a tick's own enqueue loop (seconds, where busy workers hold
+    the interpreter) does not push every later tick back by as much; a
+    tick that overran whole periods skips the deadlines it missed.  The
+    reference waits a whole period after each tick instead."""
+
+    def __init__(self, period: float):
+        self._period = period
+        self._next = clockseam.monotonic() + period
+
+    def until_next(self) -> float:
+        now = clockseam.monotonic()
+        if self._next <= now:
+            self._next += self._period * (1 + (now - self._next) // self._period)
+        return self._next - now
+
+
+class _DriftTick:
+    """One tick of the in-process ticker, as the port's instruments see
+    it: counted as it starts, its enqueue loop charged to the
+    ``drift-tick`` stage, and its drain (tick start to the last of its
+    keys done with a reconcile begun after its enqueue) observed once."""
+
+    def __init__(self, name: str):
+        self._name = name
+        self._expected = 0  # the keys the queues accepted (the ticker's thread alone counts)
+        self._total: Optional[int] = None  # those plus the enqueue loop, set by close()
+        # next() on a count is atomic, so exactly one caller draws the last number
+        self._finishes = itertools.count(1)
+        self._started = clockseam.monotonic()
+        # resolved here: finished() runs under a work queue's mutex
+        self._drain = instruments.drift_tick_drain_seconds().labels(controller=name)
+        instruments.drift_ticks_total().labels(controller=name, outcome="ran").inc()
+        self._stage = obs_profile.stage("drift-tick", controller=name)
+        self._stage.__enter__()
+        workqueue.watch_adds(self)
+
+    @staticmethod
+    def shed(name: str) -> None:
+        instruments.drift_ticks_total().labels(controller=name, outcome="shed").inc()
+
+    def expect(self) -> None:
+        """A queue accepted one of this tick's adds."""
+        self._expected += 1
+
+    def finished(self) -> None:
+        """One of this tick's adds has had its reconcile, or the enqueue
+        loop has ended; the last of them observes the drain."""
+        if next(self._finishes) == self._total:
+            self._drain.observe(max(0.0, clockseam.monotonic() - self._started))
+
+    def close(self) -> None:
+        """The enqueue loop has ended."""
+        workqueue.watch_adds(None)
+        self._stage.__exit__(None, None, None)
+        instruments.drift_tick_keys_total().labels(controller=self._name).inc(self._expected)
+        self._total = self._expected + 1
+        self.finished()
 
 
 # ---------------------------------------------------------------------------

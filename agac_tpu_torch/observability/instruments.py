@@ -953,6 +953,37 @@ def fake_aws_lock_seconds(registry: Optional[MetricsRegistry] = None) -> metrics
     )
 
 
+def drift_ticks_total(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.counter(
+        "agac_drift_ticks_total",
+        "Ticks of a controller's in-process drift-resync ticker, by "
+        "outcome: ran, or shed under SLO budget burn",
+        labels=("controller", "outcome"),
+    )
+
+
+def drift_tick_keys_total(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.counter(
+        "agac_drift_tick_keys_total",
+        "Keys a controller's in-process drift-resync ticks enqueued",
+        labels=("controller",),
+    )
+
+
+def drift_tick_drain_seconds(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.histogram(
+        "agac_drift_tick_drain_seconds",
+        "Wall seconds from a drift-resync tick's start until every key it "
+        "enqueued has finished a reconcile begun after the enqueue; "
+        "observed once per tick, per controller",
+        labels=("controller",),
+        buckets=_DURATION_BUCKETS,
+    )
+
+
 # (family name, the accessor that registers it)
 PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Metric]], ...] = (
     ("agac_read_plane_load_seconds", read_plane_load_seconds),
@@ -960,4 +991,7 @@ PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Me
     ("agac_pending_settle_wait_seconds", pending_settle_wait_seconds),
     ("agac_apiserver_request_duration_seconds", apiserver_request_duration_seconds),
     ("agac_fake_aws_lock_seconds", fake_aws_lock_seconds),
+    ("agac_drift_ticks_total", drift_ticks_total),
+    ("agac_drift_tick_keys_total", drift_tick_keys_total),
+    ("agac_drift_tick_drain_seconds", drift_tick_drain_seconds),
 )

@@ -31,6 +31,16 @@ from ..analysis import racecheck
 from ..observability import instruments
 
 
+def watch_adds(drain) -> None:
+    """Port-only: route the ``add`` calls the calling thread makes to
+    ``drain`` (None stops), as a drift tick's enqueue loop does
+    (``controllers/common.py``).  Each accepted add calls
+    ``drain.expect()`` at once and ``drain.finished()`` when a reconcile
+    of the item that began after the add is done.  The thread object
+    carries the drain, so nothing is shared between threads."""
+    threading.current_thread().agac_drift_drain = drain
+
+
 class ItemExponentialFailureRateLimiter:
     """Per-item exponential backoff: base * 2^failures, capped."""
 
@@ -223,6 +233,10 @@ class RateLimitingQueue:
         # no stale cause)
         self._waiting_eta: dict[Hashable, float] = {}
         self._reasons: dict[Hashable, str] = {}
+        # port-only: item -> the drift ticks waiting for its next
+        # reconcile (not yet begun / running)
+        self._drains_next: dict[Hashable, list] = {}
+        self._drains_running: dict[Hashable, list] = {}
         # the delay waker is a real thread ONLY when the runtime allows
         # threads; under the sim runtime delayed adds are
         # popped synchronously by the cooperative scheduler via
@@ -251,6 +265,23 @@ class RateLimitingQueue:
     def add(self, item: Hashable) -> None:
         with self._mutex:
             self._add_locked(item)
+            self._watch_add_locked(item)
+
+    def _watch_add_locked(self, item: Hashable) -> None:
+        drain = getattr(threading.current_thread(), "agac_drift_drain", None)
+        if drain is None or self._shutting_down:
+            return
+        drain.expect()
+        self._drains_next.setdefault(item, []).append(drain)
+
+    def _drains_begin_locked(self, item: Hashable) -> None:
+        drains = self._drains_next.pop(item, None)
+        if drains:
+            self._drains_running[item] = drains
+
+    def _drains_done_locked(self, item: Hashable) -> None:
+        for drain in self._drains_running.pop(item, ()):
+            drain.finished()
 
     def get(self, timeout: Optional[float] = None) -> tuple[Any, bool]:
         """Block until an item is available. Returns (item, shutdown).
@@ -275,6 +306,7 @@ class RateLimitingQueue:
             item = self._queue.popleft()
             self._processing.add(item)
             self._dirty.discard(item)
+            self._drains_begin_locked(item)
             now = self._clock()
             wait = max(0.0, now - self._added_at.pop(item, now))
             self._m_queue_duration.observe(wait)
@@ -296,6 +328,7 @@ class RateLimitingQueue:
             started = self._got_at.pop(item, None)
             if started is not None:
                 self._m_work_duration.observe(max(0.0, now - started))
+            self._drains_done_locked(item)
             if item in self._dirty:
                 self._queue.append(item)
                 self._m_depth.set(len(self._queue))

@@ -95,6 +95,25 @@ PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.reconcile.pending::PendingSettleTable._pop_locked",
     "agac_tpu.cluster.rest::RestClusterClient._timed_send",
     "agac_tpu.cloudprovider.aws.fake_backend::FileBackedFakeAWSBackend._lock_observed",
+    # the in-process drift ticker's instruments (ticks, keys, drain) and
+    # its deadlines at whole periods from its start
+    "agac_tpu.observability.instruments::drift_ticks_total",
+    "agac_tpu.observability.instruments::drift_tick_keys_total",
+    "agac_tpu.observability.instruments::drift_tick_drain_seconds",
+    "agac_tpu.controllers.common::_DriftTick.__init__",
+    "agac_tpu.controllers.common::_DriftTick.shed",
+    "agac_tpu.controllers.common::_DriftTick.expect",
+    "agac_tpu.controllers.common::_DriftTick.finished",
+    "agac_tpu.controllers.common::_DriftTick.close",
+    "agac_tpu.controllers.common::_TickSchedule.__init__",
+    "agac_tpu.controllers.common::_TickSchedule.until_next",
+    # an accelerator-level drift repair folded into the discovery
+    # snapshot, not dropping it
+    "agac_tpu.cloudprovider.aws.driver::AWSDriver._discovery_retagged",
+    "agac_tpu.reconcile.workqueue::watch_adds",
+    "agac_tpu.reconcile.workqueue::RateLimitingQueue._watch_add_locked",
+    "agac_tpu.reconcile.workqueue::RateLimitingQueue._drains_begin_locked",
+    "agac_tpu.reconcile.workqueue::RateLimitingQueue._drains_done_locked",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})

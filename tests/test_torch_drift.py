@@ -15,7 +15,9 @@ that this path fixes.
   1's holder is the victim: with shard 0 killed at this size the
   reference's survivor never steals (``ROADMAP.md`` Queue 3).
 - ``test_both_command_lines_give_the_same_stage_catalog``: the stage
-  accountant's stages in the replicas' ``/metrics`` of those runs.
+  accountant's stages in the replicas' ``/metrics`` of those runs, the
+  same but for the port's ``drift-tick``, to which its ticker charges
+  its enqueue loop.
 - ``test_drift_reports_count_each_shard_once_across_a_takeover``: two
   in-process Managers on one fake cluster, one shard each, tick drift;
   an open circuit marks one's report partial; after it releases its
@@ -48,6 +50,17 @@ that this path fixes.
   the connection.  The reference's polls the store until the watch's
   240 s timeout, so each idle informer left one such thread every five
   seconds, up to 48 per informer.
+- ``test_a_slow_enqueue_loop_does_not_push_the_next_tick_later``: a
+  ticker whose enqueue loop takes most of a period must still tick a
+  period apart.  The reference waits a whole period after each loop, so
+  its ticks drift by the loop's length each time (seconds a tick over
+  1,200 objects while busy workers hold the interpreter).
+- ``test_a_repaired_disable_keeps_the_discovery_snapshot``: an
+  accelerator disabled out of band and repaired by the ensure path
+  leaves the discovery snapshot loaded, the repair folded in with the
+  tags AWS then holds.  The reference drops the snapshot, so its next
+  lookup re-reads every accelerator's tags (1,200 reads a repaired
+  disable on the documented fleet).
 
 The port, the reference and ``chip_smoke`` are imported inside the
 tests only (the repository's linter treats the port as third party)."""
@@ -118,7 +131,10 @@ def test_drift_fleets_agree_with_the_reference(fleets):
 def test_both_command_lines_give_the_same_stage_catalog(fleets):
     catalogs = {p: fleets[p]["stages"]["catalog"] for p in PACKAGES}
     assert {"driver-mutate", "queue-pop", "self-tax"} <= set(catalogs[PORT])
-    assert catalogs[PORT] == catalogs["agac_tpu"]
+    # the port's ticker charges its enqueue loop to the drift-tick stage
+    # (the reference's charges it to none); every other stage is shared
+    assert "drift-tick" in catalogs[PORT] and "drift-tick" not in catalogs["agac_tpu"]
+    assert [stage for stage in catalogs[PORT] if stage != "drift-tick"] == catalogs["agac_tpu"]
 
 
 def _reports(package: str) -> dict:
@@ -374,3 +390,63 @@ def test_the_apiserver_ends_a_watch_its_client_closed():
         assert threading.active_count() <= before
     finally:
         server.stop()
+
+
+def test_a_slow_enqueue_loop_does_not_push_the_next_tick_later(package=PORT):
+    period, loop_s = 0.5, 0.35
+    ticks = []
+
+    class Lister:
+        def list(self):
+            ticks.append(time.monotonic())
+            return ["key"]
+
+    stop = threading.Event()
+    thread = _module(package, "controllers.common").start_drift_resync(
+        "cadence-test", stop, period, [(Lister(), lambda obj: True, lambda obj: time.sleep(loop_s))]
+    )
+    try:
+        deadline = time.monotonic() + 10.0
+        while len(ticks) < 5:
+            assert time.monotonic() < deadline, ticks
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        thread.join(5.0)
+    assert not thread.is_alive()
+    gaps = [later - earlier for earlier, later in zip(ticks, ticks[1:])]
+    assert all(abs(gap - period) < 0.2 for gap in gaps), gaps
+
+
+def test_a_repaired_disable_keeps_the_discovery_snapshot(package=PORT):
+    smoke = importlib.import_module("chip_smoke")
+    pkg = smoke.load(package)
+    aws = pkg.aws.FakeAWSBackend(quota_accelerators=20)
+    now = [1000.0]
+    discovery = pkg.aws.DiscoveryCache(ttl=60.0, tags_ttl=600.0, clock=lambda: now[0])
+    driver = pkg.aws.AWSDriver(aws, aws, aws, discovery_cache=discovery)
+    services = []
+    for i in range(5):
+        name, host = smoke.service_lb(i)
+        aws.add_load_balancer(name, "us-west-2", host)
+        services.append(smoke.make_service(pkg, i))
+
+    def ensure(svc):
+        ingress = svc.status.load_balancer.ingress[0]
+        return driver.ensure_global_accelerator_for_service(
+            svc, ingress, "default", svc.metadata.name, "us-west-2"
+        )
+
+    arns = [ensure(svc)[0] for svc in services]
+    aws.update_accelerator(arns[0], enabled=False)  # out of band
+    now[0] += 61.0  # the snapshot expires; its reload sees the disable
+    ensure(services[0])
+    assert aws.describe_accelerator(arns[0]).enabled
+    before = len(aws.calls)
+    for svc in services[1:]:
+        ensure(svc)
+    reads = [call[0] for call in aws.calls[before:]]
+    assert "ListTagsForResource" not in reads and "ListAccelerators" not in reads, reads
+    ((accelerator, tags),) = [entry for entry in discovery.peek() if entry[0].accelerator_arn == arns[0]]
+    assert accelerator.enabled
+    assert sorted(map(repr, tags)) == sorted(map(repr, aws.list_tags_for_resource(arns[0])))

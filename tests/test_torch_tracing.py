@@ -2,14 +2,17 @@
 the read plane's single-flight loads and the callers parked behind
 them, the pending-settle table from park to leaving it, every request
 on the wire to the API server, the durable fake account's interprocess
-lock, and the sampled reconcile trace that carries their spans and an
-absolute start ``t0``.  Each case reads the histogram a per-layer
+lock, the in-process drift ticker (its ticks, the keys each enqueues
+and its drain), and the sampled reconcile trace that carries their spans
+and an absolute start ``t0``.  Each case reads the family a per-layer
 metric of the benchmark reads (``perfbench/metrics/``)."""
 
 from __future__ import annotations
 
 import importlib
 import io
+import pathlib
+import sys
 import threading
 import time
 
@@ -396,3 +399,170 @@ def test_the_unsampled_path_allocates_no_span(monkeypatch):
         trace.record("read-plane-wait:zones", 0.0, 1.0)
     tracer.finish(current)
     assert made == [] and tracer.emitted_total == 0
+
+
+# ---------------------------------------------------------------------------
+# the in-process drift ticker: ticks, keys per tick, the tick's drain
+# ---------------------------------------------------------------------------
+
+DRIFT_FAMILIES = ("agac_drift_ticks_total", "agac_drift_tick_keys_total", "agac_drift_tick_drain_seconds")
+
+
+def _counted(name: str, **labels) -> float:
+    metric = _port("observability.metrics").registry().get(name)
+    return 0.0 if metric is None else metric.labels(**labels).value()
+
+
+def test_a_ticks_drain_waits_for_a_reconcile_begun_after_its_enqueue():
+    common = _port("controllers.common")
+    workqueue = _port("reconcile.workqueue")
+    name = "drift-drain-test"
+    queue = workqueue.RateLimitingQueue(name=name)
+    drains0 = _reading("agac_drift_tick_drain_seconds", controller=name)
+    ran0 = _counted("agac_drift_ticks_total", controller=name, outcome="ran")
+    keys0 = _counted("agac_drift_tick_keys_total", controller=name)
+    queue.add("a")
+    running, _ = queue.get()  # a reconcile of "a" begun before the tick
+    tick = common._DriftTick(name)
+    for key in ("a", "b"):
+        queue.add(key)
+    tick.close()
+    queue.add("c")  # after the tick's enqueue loop: not the tick's
+    queue.done(running)
+    assert _reading("agac_drift_tick_drain_seconds", controller=name) == drains0
+    b, _ = queue.get()
+    time.sleep(0.2)  # the slowest of the tick's reconciles
+    queue.done(b)
+    assert (b, _reading("agac_drift_tick_drain_seconds", controller=name)) == ("b", drains0)
+    c, _ = queue.get()
+    assert c == "c"
+    again, _ = queue.get()  # "a" again: requeued when its earlier reconcile ended
+    assert again == "a"
+    queue.done(again)
+    count, total = _reading("agac_drift_tick_drain_seconds", controller=name)
+    assert count - drains0[0] == 1
+    assert 0.2 <= total - drains0[1] < 5.0
+    queue.done(c)
+    assert _reading("agac_drift_tick_drain_seconds", controller=name)[0] == count
+    assert _counted("agac_drift_ticks_total", controller=name, outcome="ran") - ran0 == 1
+    assert _counted("agac_drift_tick_keys_total", controller=name) - keys0 == 2
+    queue.shutdown()
+
+
+def test_a_ticks_drain_is_observed_once_under_concurrent_finishes():
+    common = _port("controllers.common")
+    name = "drift-stress-test"
+    before = _reading("agac_drift_tick_drain_seconds", controller=name)[0]
+    workers, per = 16, 400
+    released = threading.Semaphore(0)
+    tick = common._DriftTick(name)
+
+    def finish():
+        assert released.acquire(timeout=JOIN_S)
+        for _ in range(per):
+            tick.finished()
+
+    threads = [threading.Thread(target=finish) for _ in range(workers)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for thread in threads:
+            thread.start()
+        # the ticker goes on enqueueing while workers finish earlier keys
+        for i in range(workers * per):
+            tick.expect()
+            if i % per == per - 1:
+                released.release()
+        tick.close()
+        for thread in threads:
+            thread.join(JOIN_S)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(thread.is_alive() for thread in threads)
+    assert _reading("agac_drift_tick_drain_seconds", controller=name)[0] - before == 1
+
+
+def test_a_shed_tick_is_counted_as_shed(monkeypatch):
+    common = _port("controllers.common")
+    slo = _port("observability.slo")
+    name = "drift-shed-test"
+    monkeypatch.setattr(slo, "should_shed", lambda stage: stage == "drift-resync")
+    enqueued = []
+    stop = threading.Event()
+    thread = common.start_drift_resync(name, stop, 0.01, [([1, 2], lambda obj: True, enqueued.append)])
+    try:
+        _wait_until(lambda: _counted("agac_drift_ticks_total", controller=name, outcome="shed") >= 2,
+                    "no tick was shed")
+    finally:
+        stop.set()
+        thread.join(JOIN_S)
+    assert not thread.is_alive()
+    assert enqueued == []
+    assert _counted("agac_drift_ticks_total", controller=name, outcome="ran") == 0
+
+
+def test_an_in_process_managers_ticks_enqueue_every_managed_object_and_drain_once():
+    import chip_smoke
+
+    pkg = chip_smoke.load("agac_tpu_torch")
+    fleet = chip_smoke.Fleet(pkg, 20)
+    period = 0.5
+    queue = dict(workers=4, queue_qps=1000.0, queue_burst=1000, drift_resync_period=period)
+    config = pkg.manager.ControllerConfig(
+        global_accelerator=pkg.controllers.GlobalAcceleratorConfig(**queue),
+        route53=pkg.controllers.Route53Config(**queue),
+        endpoint_group_binding=pkg.controllers.EndpointGroupBindingConfig(**queue),
+    )
+    managed = {
+        "global-accelerator-controller": fleet.n + fleet.n_ing,
+        "route53-controller": fleet.n + fleet.n_ing,
+        "endpoint-group-binding-controller": fleet.n_egb,
+    }
+    before = {
+        c: (_counted("agac_drift_ticks_total", controller=c, outcome="ran"),
+            _counted("agac_drift_tick_keys_total", controller=c),
+            _reading("agac_drift_tick_drain_seconds", controller=c)[0])
+        for c in managed
+    }
+
+    def delta(controller):
+        ticks, keys, drains = before[controller]
+        return (_counted("agac_drift_ticks_total", controller=controller, outcome="ran") - ticks,
+                _counted("agac_drift_tick_keys_total", controller=controller) - keys,
+                _reading("agac_drift_tick_drain_seconds", controller=controller)[0] - drains)
+
+    aws, stop = fleet.aws, threading.Event()
+    pkg.manager.Manager(resync_period=30.0).run(
+        fleet.cluster, config, stop, block=False,
+        cloud_factory=lambda region: pkg.aws.AWSDriver(aws, aws, aws, accelerator_missing_retry=0.05),
+    )
+    try:
+        fleet.create_objects()
+        deadline = time.monotonic() + 60.0
+        while True:
+            readings = {}
+            for controller in managed:
+                drains = delta(controller)[2]  # read first: a tick may start between the reads
+                ticks, keys, _ = delta(controller)
+                readings[controller] = (ticks, keys, drains)
+            # on a busy host a tick may still be draining when the next
+            # starts: read once at most one tick of each controller is open
+            if fleet.converged() and all(d >= 3 and d >= t - 1 for t, _, d in readings.values()):
+                break
+            assert time.monotonic() < deadline, readings
+            time.sleep(0.05)
+    finally:
+        stop.set()
+    for controller, (ticks, keys, drains) in readings.items():
+        # every tick enqueues every managed object (a tick counted as it
+        # starts may not have finished its enqueue loop yet)
+        assert keys in (ticks * managed[controller], (ticks - 1) * managed[controller]), controller
+        assert ticks - 1 <= drains <= ticks, controller
+
+
+@pytest.mark.parametrize("family", DRIFT_FAMILIES)
+def test_the_drift_families_stay_out_of_the_reference_catalog(family):
+    # test_torch_observability holds every PORT_ONLY family out of register_all
+    assert family in dict(_port("observability.instruments").PORT_ONLY)
+    docs = (pathlib.Path(__file__).resolve().parent.parent / "docs" / "operations.md").read_text()
+    assert family not in docs
