@@ -63,6 +63,7 @@ from .types import (
     AliasTarget,
     Change,
     EndpointConfiguration,
+    EndpointDescription,
     EndpointGroup,
     HostedZone,
     Listener,
@@ -1236,7 +1237,20 @@ class AWSDriver:
         ip_preserve: bool,
         weight: Optional[int],
     ) -> tuple[Optional[str], float]:
-        """Returns (endpoint_id, retry_after)."""
+        """Returns (endpoint_id, retry_after), the reference's contract."""
+        added, retry_after = self.add_lb_endpoint(endpoint_group, lb_name, ip_preserve, weight)
+        return (added.endpoint_id if added is not None else None), retry_after
+
+    def add_lb_endpoint(
+        self,
+        endpoint_group: EndpointGroup,
+        lb_name: str,
+        ip_preserve: bool,
+        weight: Optional[int],
+    ) -> tuple[Optional[EndpointDescription], float]:
+        """``add_lb_to_endpoint_group`` reporting what AWS set: returns
+        (the EndpointDescription AddEndpoints returned, retry_after), so
+        a caller knows the weight it holds without a describe."""
         lb = self.get_load_balancer(lb_name)
         if lb.state_code != LB_STATE_ACTIVE:
             klog.warningf(
@@ -1257,7 +1271,7 @@ class AWSDriver:
             raise AWSAPIError("NoEndpointAdded", "No endpoint is added")
         self._topology_eg_mutated(endpoint_group.endpoint_group_arn)
         klog.infof("Endpoint is added: %s", added[0].endpoint_id)
-        return added[0].endpoint_id, 0.0
+        return added[0], 0.0
 
     def remove_lb_from_endpoint_group(
         self, endpoint_group: EndpointGroup, endpoint_id: str

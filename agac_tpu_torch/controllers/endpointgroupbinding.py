@@ -42,6 +42,7 @@ from ..cluster import ClusterClient, EventRecorder, SharedInformerFactory
 from ..cluster.objects import meta_namespace_key, split_meta_namespace_key
 from ..reconcile import RateLimitingQueue, Result, controller_rate_limiter
 from ..sharding import OWNS_ALL
+from ..observability import instruments
 from ..observability import journey as obs_journey
 from .common import (
     CloudFactory,
@@ -347,6 +348,14 @@ class EndpointGroupBindingController:
         if endpoint_group is None:
             endpoint_group = cloud.describe_endpoint_group(obj.spec.endpoint_group_arn)
 
+        # the weight AWS holds for each endpoint, as far as this pass
+        # already knows it: the describe above, then each add's response
+        # (a pass that applies an edit of a converged binding's spec
+        # trusts none of it and writes, as the reference does)
+        edited = 0 < obj.status.observed_generation != obj.metadata.generation
+        known_weights = {
+            d.endpoint_id: d.weight for d in endpoint_group.endpoint_descriptions
+        }
         results = list(obj.status.endpoint_ids)
         for endpoint_id in removed_endpoint_ids:
             regional = self._cloud(get_region_from_arn(endpoint_id))
@@ -356,7 +365,7 @@ class EndpointGroupBindingController:
         for endpoint_id in new_endpoint_ids:
             lb_name, region = arns[endpoint_id]
             regional = self._cloud(region)
-            added_id, retry_after = regional.add_lb_to_endpoint_group(
+            added, retry_after = regional.add_lb_endpoint(
                 endpoint_group,
                 lb_name,
                 obj.spec.client_ip_preservation,
@@ -367,14 +376,29 @@ class EndpointGroupBindingController:
                 # progress, not an error backoff
                 return Result(requeue=True, requeue_after=retry_after,
                               reason="in-flight")
-            if added_id is not None and added_id not in results:
+            if added is None:
+                continue
+            known_weights[added.endpoint_id] = added.weight
+            if added.endpoint_id not in results:
                 # drift repair re-adds ids that are still in status —
                 # appending unconditionally would duplicate them
-                results.append(added_id)
+                results.append(added.endpoint_id)
 
-        # weight sync for every bound endpoint (reference ``reconcile.go:195-202``)
+        # weight sync for every bound endpoint (reference
+        # ``reconcile.go:195-202``), skipping the write where this pass
+        # already saw the spec's weight in AWS: the reference resends it
+        # (a describe and an UpdateEndpointGroup) after every add
         for endpoint_id in arns:
-            cloud.update_endpoint_weight(endpoint_group, endpoint_id, obj.spec.weight)
+            if (
+                not edited
+                and endpoint_id in known_weights
+                and known_weights[endpoint_id] == obj.spec.weight
+            ):
+                outcome = "skipped"
+            else:
+                cloud.update_endpoint_weight(endpoint_group, endpoint_id, obj.spec.weight)
+                outcome = "written"
+            instruments.binding_weight_sync_total().labels(outcome=outcome).inc()
 
         obj.status.endpoint_ids = results
         obj.status.observed_generation = obj.metadata.generation

@@ -984,6 +984,18 @@ def drift_tick_drain_seconds(registry: Optional[MetricsRegistry] = None) -> metr
     )
 
 
+def binding_weight_sync_total(registry: Optional[MetricsRegistry] = None) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.counter(
+        "agac_binding_weight_sync_total",
+        "Endpoints an EndpointGroupBinding's weight sync visited, by "
+        "outcome: written, or skipped where the state the pass already "
+        "held (the add's response or its describe) showed the spec's "
+        "weight and the pass applied no edit of the binding's spec",
+        labels=("outcome",),
+    )
+
+
 # (family name, the accessor that registers it)
 PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Metric]], ...] = (
     ("agac_read_plane_load_seconds", read_plane_load_seconds),
@@ -994,4 +1006,5 @@ PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Me
     ("agac_drift_ticks_total", drift_ticks_total),
     ("agac_drift_tick_keys_total", drift_tick_keys_total),
     ("agac_drift_tick_drain_seconds", drift_tick_drain_seconds),
+    ("agac_binding_weight_sync_total", binding_weight_sync_total),
 )

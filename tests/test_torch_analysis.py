@@ -114,6 +114,9 @@ PORT_ONLY_FUNCTIONS = frozenset({
     "agac_tpu.reconcile.workqueue::RateLimitingQueue._watch_add_locked",
     "agac_tpu.reconcile.workqueue::RateLimitingQueue._drains_begin_locked",
     "agac_tpu.reconcile.workqueue::RateLimitingQueue._drains_done_locked",
+    # the binding's weight sync, counted where it writes and where it
+    # skips a weight the pass already saw in AWS
+    "agac_tpu.observability.instruments::binding_weight_sync_total",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})

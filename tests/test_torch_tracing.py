@@ -3,8 +3,8 @@ the read plane's single-flight loads and the callers parked behind
 them, the pending-settle table from park to leaving it, every request
 on the wire to the API server, the durable fake account's interprocess
 lock, the in-process drift ticker (its ticks, the keys each enqueues
-and its drain), and the sampled reconcile trace that carries their spans
-and an absolute start ``t0``.  Each case reads the family a per-layer
+and its drain), the binding's weight sync, and the sampled reconcile
+trace that carries their spans and an absolute start ``t0``.  Each case reads the family a per-layer
 metric of the benchmark reads (``perfbench/metrics/``)."""
 
 from __future__ import annotations
@@ -566,3 +566,29 @@ def test_the_drift_families_stay_out_of_the_reference_catalog(family):
     assert family in dict(_port("observability.instruments").PORT_ONLY)
     docs = (pathlib.Path(__file__).resolve().parent.parent / "docs" / "operations.md").read_text()
     assert family not in docs
+
+
+# ---------------------------------------------------------------------------
+# the binding's weight sync: written, or skipped where the pass already
+# saw the spec's weight in AWS
+# ---------------------------------------------------------------------------
+
+
+def test_the_weight_sync_counter_is_port_only_and_counts_each_outcome():
+    from .test_torch_binding_weight import World
+
+    family = "agac_binding_weight_sync_total"
+    instruments = _port("observability.instruments")
+    metrics = _port("observability.metrics")
+    assert family in dict(instruments.PORT_ONLY)
+    assert instruments.register_all(metrics.MetricsRegistry()).get(family) is None
+    docs = (pathlib.Path(__file__).resolve().parent.parent / "docs" / "operations.md").read_text()
+    assert family not in docs
+    world = World()
+    try:
+        world.bind("a", 100)
+        assert world.measure("a")[1:] == (0, 1)  # new: the add set the weight
+        world.edit_weight("a", 200)
+        assert world.measure("a")[1:] == (1, 0)  # edited: written
+    finally:
+        world.close()
