@@ -32,21 +32,22 @@ Phases, in order; any failure exits non-zero before the last line:
    agac_tpu_torch webhook`` must then deny an ``EndpointGroupArn``
    change and allow a create, and every child must stop cleanly on
    SIGTERM.  Host code: the card is idle in this phase.
-4. ``shard``: the sharded deployment, ``bench.py``'s scaling curve over
-   the port's command line.  At widths 1, 2 and 4, that many ``python
-   -m agac_tpu_torch controller --shard-count W`` replicas share one
-   HTTP apiserver and one flock-arbitrated fake AWS account
-   (``AGAC_FAKE_STATE``, 0.3 s per call) and converge 200 Services on
-   one NLB, created once every shard lease is held; a fourth run at
-   width 2 kills the holder of shard 0 with SIGKILL halfway, and the
-   survivor must steal its lease and finish.  Read over the wire, each
-   run must show disjoint lease ownership, exactly 200 complete
-   chains, an aggregate call rate and summed AIMD ceilings within the
-   400/s per-service budget, a journey closed per Service in the
-   fleet-merged metrics and, after the kill, the survivor owning every
-   shard.  Objects/s, speedup and efficiency per width print beside
-   ``bench.py``'s gates, which measure the host and are not enforced.
-   Host code: the card is idle in this phase.
+4. ``shard``: the sharded deployment over the port's command line.
+   Four ``python -m agac_tpu_torch controller --shard-count 4``
+   replicas share one HTTP apiserver and one flock-arbitrated fake AWS
+   account (``AGAC_FAKE_STATE``, 0.3 s per call) and converge 200
+   Services on one NLB, created once every shard lease is held; one
+   ``--shard-count 1 --disable-leader-election`` replica converges the
+   same fleet alone; a run at width 2 kills the holder of shard 0 with
+   SIGKILL halfway, and the survivor must steal its lease and finish
+   (the plain width 2 runs against the reference on the CPU, and the
+   ``autoscale`` phase starts at it).  Read over the wire, each run
+   must show disjoint lease ownership, exactly 200 complete
+   chains and never more, the call rate and summed AIMD ceilings
+   within the 400/s per-service budget at every read, a journey closed
+   per Service in the fleet-merged metrics and, after the kill, the
+   survivor owning every shard.  Host code: the card is idle in this
+   phase.
 5. ``resize``: the live elastic resize as the operations runbook runs
    it, on the ``shard`` phase's fleet.  Two ``python -m agac_tpu_torch
    controller --shard-count 2 --shards-per-replica 4`` replicas converge
@@ -59,10 +60,9 @@ Phases, in order; any failure exits non-zero before the last line:
    shared account every 0.1 s through the run: no accelerator owner
    may ever repeat, and the fleet must create each accelerator once,
    end with exactly 200 complete chains after each resize, stay within
-   the 400/s per-service budget at every ring and answer
-   ``converged`` for every Service.  Transition times, handoff
-   windows, moved keys and the resize journeys' percentiles print
-   beside the bounds.  Host code: the card is idle in this phase.
+   the 400/s per-service budget at every read and answer
+   ``converged`` for every Service.  Host code: the card is idle in
+   this phase.
 6. ``autoscale``: the SLO autoscaler closing its loop over processes,
    the reference's autoscaler canary as the command line runs it.  Four
    ``python -m agac_tpu_torch controller --autoscale --shard-count 2
@@ -76,9 +76,7 @@ Phases, in order; any failure exits non-zero before the last line:
    while a replica records the scale-out it held.  Both must create
    each accelerator once, stay within the 400/s per-service budget at
    every read, answer ``converged`` for every Service and leave no
-   journey in flight on any replica once the wave is done.  Reaction,
-   drain times with and without the scale-out, decisions per replica
-   and the journeys' percentiles print beside the bounds.  Host code:
+   journey in flight on any replica once the wave is done.  Host code:
    the card is idle in this phase.
 7. ``teardown``: deletion, teardown and the orphan sweeper over
    processes, on the ``shard`` phase's fleet and account.  Two ``python
@@ -106,7 +104,7 @@ Phases, in order; any failure exits non-zero before the last line:
 8. ``drift``: drift resync over processes, with the binding controller
    in the fleet, on the ``teardown`` phase's fleet settings.  Two
    ``python -m agac_tpu_torch controller --shard-count 2
-   --shards-per-replica 2 --drift-resync-period 10`` replicas (the
+   --shards-per-replica 2 --drift-resync-period 12`` replicas (the
    discovery snapshot's TTL at the period) converge ``bench.py``'s mixed
    fleet: 200 Services, 20 ALB Ingresses and 20 EndpointGroupBindings,
    each binding putting a Service's NLB into an out-of-band chain this
@@ -169,10 +167,6 @@ Phases, in order; any failure exits non-zero before the last line:
    model mesh of 8 gloo processes on the CPU, held to the unsharded
    step.
 
-``shard``, ``resize``, ``autoscale``, ``teardown`` and ``drift`` also
-print the stage accountant's per-stage table, folded from the
-replicas' ``/metrics`` as the phase last scraped them.
-
 The kernel line lists none: the reference holds no Pallas kernel, so
 the port has no hand-written kernel to hold against a plain version.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -181,12 +175,17 @@ The fleet helpers, ``converge``, ``process``, ``shard_fleet``,
 ``resize_fleet``, ``autoscale_fleet``, ``teardown_fleet``, ``drift_fleet``, ``rollout`` and
 ``shard_soak`` take the package as a parameter so that
 tests can run the same fleet through the reference; this script itself
-only ever loads the port.
+only ever loads the port.  The process drills share one lifecycle
+(``ProcessFleet``) and one state-file watcher (``StateWatch``).
+Measurements belong to ``perfbench/``: the fleet phases print their
+bounds' outcomes, and only the ``graft`` phase times something (its
+MLP's forward and train step, by CUDA events, beside their bounds).
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import importlib
 import json
@@ -241,13 +240,12 @@ CHART_ARGS = (
 PROCESS_DEADLINE = 600.0
 EXIT_DEADLINE = 15.0
 
-# the shard phase: bench.py's scaling-curve sweep (bench.py:1255-1290),
-# its fleet (SHARD_N Services on one NLB), workers, call latency and
-# global per-service AWS budget.  Width 8 is cut: eight processes x 8
-# workers beside the apiserver on the card host's 8 cores measure the
-# host (bench.py:1260-1264)
+# the shard phase: bench.py's sharded fleet (bench.py:1255-1290): its
+# Services on one NLB, workers, call latency and global per-service AWS
+# budget, at the widest width the card host's 8 cores carry beside the
+# apiserver (bench.py:1260-1264)
 SHARD_SERVICES = 200
-SHARD_WIDTHS = (1, 2, 4)
+SHARD_WIDTH = 4
 SHARD_WORKERS = 8
 SHARD_LATENCY = 0.3
 SHARD_BUDGET_QPS = 400.0
@@ -255,9 +253,6 @@ SHARD_LB = ("shardlb", f"shardlb-0123456789abcdef.elb.{REGION}.amazonaws.com")
 # the failover run kills the holder of shard 0 once this share of the
 # fleet's chains is complete
 SHARD_KILL_AT = 0.5
-# the bench's gates, printed beside the curve but not enforced: they
-# measure the host's cores
-SHARD_MIN_SPEEDUP_2, SHARD_MIN_EFFICIENCY_4 = 1.7, 0.75
 # the bench's lease timing and retry and poll overrides
 # (bench.py:1389-1411): a sub-2 s renew deadline reads a GIL pause on
 # shared cores as a crash, and the chart's 60 s lease would stretch the
@@ -281,9 +276,13 @@ RESIZE_FROM, RESIZE_TO, RESIZE_CAPACITY = 2, 4, 4
 # requested; bench.py's creation batch
 RESIZE_FIRST, RESIZE_AT = 0.75, 0.375
 RESIZE_BATCH = 8
-# the duplicate watch reads the state file every RESIZE_POLL s, and fails
+# a state-file watch reads the account every RESIZE_POLL s, and fails
 # when two reads are more than RESIZE_POLL_BOUND s apart
 RESIZE_POLL, RESIZE_POLL_BOUND = 0.1, 0.5
+# the shortest window a call rate is held over: the drills' own reads of
+# the replicas come at least this far apart (DRIFT_TICK_READ, the waits'
+# 0.25 s, the teardown's TEARDOWN_READ)
+BUDGET_WINDOW = 0.2
 # the states in which the shrink's kill lands
 RESIZE_STATES = ("draining", "adopting")
 
@@ -378,8 +377,6 @@ DRIFT_READS = {
 DRIFT_TABLE_FLEET = {"accelerators": 1100, "bindings": 100, "objects": 1200, "zones": 10}
 # seconds between the phase's reads of the replicas while it times a tick
 DRIFT_TICK_READ = 0.2
-# the on-demand sampling-profiler capture from the survivor, s
-DRIFT_PROFILE_S = 5.0
 
 # the sim phase
 CAPTURES = REPO / "tests" / "captures"
@@ -771,7 +768,7 @@ def _join_new_threads(before: set) -> list[str]:
 
 
 # ---------------------------------------------------------------------------
-# the process phase: a package's command line against an HTTP apiserver
+# the process drills: a package's command line against an HTTP apiserver
 # ---------------------------------------------------------------------------
 
 def make_process_service(pkg, i: int):
@@ -807,72 +804,51 @@ def _get_json(url: str):
         return json.loads(err.read())
 
 
-# the last /metrics text scraped from each replica, by health port: the
-# stage accountant's histograms in it are cumulative, so the phases fold
-# it into their per-stage tables (``stage_attribution``)
-LAST_METRICS: dict[int, str] = {}
+def family_sums(maps) -> dict[str, float]:
+    """Per-key sums over ``maps`` (AWS calls or AIMD ceilings by service
+    family, calls by operation)."""
+    out: dict[str, float] = {}
+    for counts in maps:
+        for key, value in counts.items():
+            out[key] = out.get(key, 0.0) + value
+    return out
 
 
-def scrape_replica(port: int) -> dict:
-    """One replica as an operator scrapes it, ``bench.py``'s reads:
-    AWS calls per service family and per operation off ``/metrics``,
-    AIMD ceilings per family off ``/readyz`` and the shard block of
-    ``/healthz``."""
-    metrics = _http(f"http://127.0.0.1:{port}/metrics").decode()
-    LAST_METRICS[port] = metrics
-    calls: dict[str, float] = {}
-    ops: dict[str, float] = {}
-    for line in metrics.splitlines():
-        if line.startswith("agac_aws_api_calls_total{"):
-            labels, _, value = line.rpartition(" ")
-            # elbv2[region] folds into elbv2: the budget is per family
-            family = labels.split('service="')[1].split('"')[0].split("[", 1)[0]
-            calls[family] = calls.get(family, 0.0) + float(value)
-            op = labels.split('op="')[1].split('"')[0]
-            ops[op] = ops.get(op, 0.0) + float(value)
+def scrape_replica(port: int, metrics: bool = True) -> dict:
+    """One replica as an operator scrapes it, ``bench.py``'s reads: AWS
+    calls per service family and per operation off ``/metrics`` (``at``:
+    the monotonic second it answered), AIMD ceilings per family off
+    ``/readyz`` and the ``sharding`` and ``gc`` blocks of ``/healthz``.
+    Without ``metrics``, the last two only."""
+    out: dict = {}
+    if metrics:
+        text = _http(f"http://127.0.0.1:{port}/metrics").decode()
+        out["at"] = time.monotonic()
+        calls: dict[str, float] = {}
+        ops: dict[str, float] = {}
+        for line in text.splitlines():
+            if line.startswith("agac_aws_api_calls_total{"):
+                labels, _, value = line.rpartition(" ")
+                # elbv2[region] folds into elbv2: the budget is per family
+                family = labels.split('service="')[1].split('"')[0].split("[", 1)[0]
+                calls[family] = calls.get(family, 0.0) + float(value)
+                op = labels.split('op="')[1].split('"')[0]
+                ops[op] = ops.get(op, 0.0) + float(value)
+        out.update(calls=calls, ops=ops, metrics=text)
     ceilings: dict[str, float] = {}
     for service, snap in _get_json(f"http://127.0.0.1:{port}/readyz").get("services", {}).items():
         if "aimd_ceiling" in snap:
             family = service.split("[", 1)[0]
             ceilings[family] = ceilings.get(family, 0.0) + snap["aimd_ceiling"]
-    sharding = _get_json(f"http://127.0.0.1:{port}/healthz")["sharding"]
-    return {
-        "calls": calls, "ops": ops, "ceilings": ceilings, "sharding": sharding, "metrics": metrics
-    }
+    health = _get_json(f"http://127.0.0.1:{port}/healthz")
+    return {**out, "ceilings": ceilings, "sharding": health["sharding"], "gc": health.get("gc")}
 
 
-def stage_attribution(pkg, texts: list[str], top: int = 12) -> dict:
-    """The stage accountant's table over replicas' ``/metrics`` texts
-    (``observability.profile.attribution_from_exposition`` sums each
-    stage's samples across them): the ``top`` stages by CPU, the CPU
-    they sum to, and ``self-tax``'s share of it (the observability
-    plane's own cost, which ``bench.py``'s profiling phase gates at 5 %
-    of throughput; printed, not enforced)."""
+def stage_catalog(pkg, texts: list[str]) -> list[str]:
+    """The stages the stage accountant charged in replicas' ``/metrics``
+    texts (``observability.profile.attribution_from_exposition``)."""
     rows = pkg.profile.attribution_from_exposition("\n".join(texts))
-    cpu = sum(row["cpu_seconds"] for row in rows)
-    tax = sum(row["cpu_seconds"] for row in rows if row["stage"] == "self-tax")
-    return {
-        "replicas": len(texts),
-        "catalog": sorted(row["stage"] for row in rows),
-        "cpu_s": cpu,
-        "self_tax_share": tax / cpu if cpu else None,
-        "stages": rows[:top],
-    }
-
-
-def stage_line(phase: str, table: dict, card: str) -> str:
-    """One phase's per-stage table as a line of the script's output."""
-    share = table["self_tax_share"]
-    rows = ", ".join(
-        f"{r['stage']} {r['cpu_seconds']:.3f}/{r['wall_seconds']:.3f} s ({r['hits']})"
-        for r in table["stages"]
-    )
-    return (
-        f"{phase} stages over {table['replicas']} replicas' /metrics (CPU/wall s, hits): {rows}; "
-        f"staged CPU {table['cpu_s']:.3f} s, self-tax "
-        f"{'n/a' if share is None else f'{100 * share:.2f} %'} of it (bench.py's overhead "
-        f"gate: <= 5 %, not enforced here) on the host of {card}"
-    )
+    return sorted(row["stage"] for row in rows)
 
 
 def cpu_seconds(pid: int) -> float:
@@ -887,7 +863,6 @@ class Child:
 
     def __init__(self, name: str, argv: list[str], env: dict, workdir: pathlib.Path):
         self.name = name
-        self.peak_rss_mib: float | None = None  # the largest sample so far
         self.err_path = workdir / f"{name}.stderr"
         with open(workdir / f"{name}.stdout", "w") as out, open(self.err_path, "w") as err:
             self.popen = subprocess.Popen(
@@ -898,19 +873,11 @@ class Child:
         return self.err_path.read_text(errors="replace")
 
     def check_alive(self) -> None:
-        """Fail when the process has exited; else sample its resident
-        set (``/proc/<pid>/statm``; a kernel that keeps no peak per
-        process leaves only sampling)."""
+        """Fail when the process has exited."""
         if self.popen.poll() is not None:
             raise PhaseError(
                 f"{self.name} exited early with {self.popen.returncode}: {self.stderr()[-3000:]}"
             )
-        try:
-            pages = int(pathlib.Path(f"/proc/{self.popen.pid}/statm").read_text().split()[1])
-        except (OSError, IndexError, ValueError):
-            return
-        rss = pages * os.sysconf("SC_PAGE_SIZE") / 2**20
-        self.peak_rss_mib = max(rss, self.peak_rss_mib or 0.0)
 
     def terminate(self) -> int:
         """SIGTERM, then the exit status within ``EXIT_DEADLINE``."""
@@ -927,38 +894,6 @@ class Child:
             self.popen.wait(timeout=EXIT_DEADLINE)
 
 
-def _wait_for(what: str, probe, children: list[Child], start: float):
-    """Poll ``probe`` until it returns a true value; fail at once when a
-    child exits, and at ``PROCESS_DEADLINE`` seconds after ``start``."""
-    while True:
-        for child in children:
-            child.check_alive()
-        value = probe()
-        if value:
-            return value
-        if time.monotonic() - start > PROCESS_DEADLINE:
-            raise PhaseError(f"no {what} within {PROCESS_DEADLINE} s")
-        time.sleep(0.25)
-
-
-def shard_placement(ports: list[int], live: list[int], shards: set, balanced: bool) -> dict | None:
-    """The shards each live replica holds by its ``/healthz`` once every
-    one of ``shards`` is held (with ``balanced``, one by each replica),
-    else None.  With no key placed yet, placement has nothing to
-    balance: a replica that started first may claim every shard before
-    the other is up, and sheds one only once the fleet's keys weigh."""
-    try:
-        owned = {
-            r: set(_get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"].get("owned", ()))
-            for r in live
-        }
-    except OSError:
-        return None
-    if set().union(*owned.values()) != shards:
-        return None
-    return owned if not balanced or all(len(o) == 1 for o in owned.values()) else None
-
-
 def write_kubeconfig(workdir: pathlib.Path, server_url: str) -> pathlib.Path:
     """A kubeconfig in ``workdir`` whose one context is ``server_url``."""
     path = workdir / "kubeconfig"
@@ -970,6 +905,430 @@ def write_kubeconfig(workdir: pathlib.Path, server_url: str) -> pathlib.Path:
     }))
     return path
 
+
+class BudgetWatch:
+    """A fleet's AWS call rates and summed AIMD ceilings, held to
+    ``SHARD_BUDGET_QPS`` per service family at every read: each rate is
+    a replica's calls since its previous read (since its start, at its
+    first), summed over the replicas read, and the ceilings are summed
+    over them.  A read less than ``BUDGET_WINDOW`` s after the previous
+    one of a replica leaves that replica's window open to its next read:
+    two reads back to back would divide a few calls by milliseconds.
+    Keeps the largest of each seen (``rates_max``, ``ceilings_max``)."""
+
+    def __init__(self, phase: str):
+        self.phase = phase
+        self.rates_max: dict[str, float] = {}
+        self.ceilings_max: dict[str, float] = {}
+        self._last: dict[int, tuple[float, dict]] = {}
+
+    def started(self, replica: int, at: float) -> None:
+        """Replica ``replica`` started at ``at`` (monotonic s): its
+        counters are 0 there."""
+        self._last[replica] = (at, {})
+
+    def hold(self, scrapes: dict[int, dict]) -> None:
+        """Hold one read: ``scrapes``, ``scrape_replica`` per replica (a
+        read without ``/metrics`` holds the ceilings only)."""
+        rates: dict[str, float] = {}
+        for r, scrape in scrapes.items():
+            then, before = self._last[r]
+            if "calls" not in scrape or scrape["at"] - then < BUDGET_WINDOW:
+                continue
+            for family, count in scrape["calls"].items():
+                delta = count - before.get(family, 0.0)
+                rates[family] = rates.get(family, 0.0) + delta / (scrape["at"] - then)
+            self._last[r] = (scrape["at"], scrape["calls"])
+        ceilings = family_sums(scrape["ceilings"] for scrape in scrapes.values())
+        for most, values in ((self.rates_max, rates), (self.ceilings_max, ceilings)):
+            for family, value in values.items():
+                most[family] = max(most.get(family, 0.0), value)
+        if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*rates.values(), *ceilings.values()]):
+            raise PhaseError(
+                f"{self.phase}: call rates {rates} or summed AIMD ceilings {ceilings} exceed "
+                f"{SHARD_BUDGET_QPS}/s per service"
+            )
+
+
+class ProcessFleet:
+    """The lifecycle every process drill shares, as a context manager:
+    an in-process ``TestApiServer`` with a kubeconfig (``kubeconfig``)
+    and a client (``client``) for it; the package's command-line
+    children (``spawn`` for the replicas, ``start`` for any other);
+    waits that fail as soon as a child exits that was not killed here,
+    or the account holds more than ``chains`` complete chains, or a
+    deadline passes; reads of the live replicas that hold the fleet's
+    AWS budget (``BudgetWatch``); a SIGKILL to one replica and the
+    survivor's takeover; and SIGTERM at the end, with every exit status
+    and every child's stderr checked.  Leaving it kills every child and
+    stops the server.
+
+    With ``owners_only`` the AIMD ceilings are summed over shard owners
+    alone, where replicas outnumber shards: ``docs/operations.md``
+    ("Quota division") states the fleet bound over them, and a replica
+    that holds no shard idles at its limiter's 0.5/s floor with no key
+    to call AWS for."""
+
+    def __init__(self, pkg, phase: str, workdir: pathlib.Path, env: dict,
+                 chains: int | None = None, owners_only: bool = False):
+        self.pkg, self.phase, self.workdir, self.env = pkg, phase, workdir, env
+        self.limit, self.owners_only = chains, owners_only
+        state = env.get("AGAC_FAKE_STATE")
+        self.aws = pkg.fake_backend.FileBackedFakeAWSBackend(state) if state else None
+        self.budget = BudgetWatch(phase)
+        self.children: list[Child] = []
+        self.killed: list[Child] = []
+        self.ports: list[int] = []
+        self.live: list[int] = []  # the replicas not killed
+        self.killed_at = 0.0
+
+    def __enter__(self) -> "ProcessFleet":
+        self.server = self.pkg.testserver.TestApiServer().start()
+        try:
+            self.kubeconfig = write_kubeconfig(self.workdir, self.server.url)
+            self.client = self.pkg.rest.RestClusterClient(self.server.url)
+        except BaseException:
+            self.server.stop()
+            raise
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for child in self.children:
+            child.kill()
+        self.server.stop()
+
+    def start(self, name: str, argv: list[str]) -> Child:
+        child = Child(name, argv, self.env, self.workdir)
+        self.children.append(child)
+        return child
+
+    def spawn(self, count: int, argv) -> float:
+        """Start ``count`` replicas, each as ``argv(port)`` with a free
+        health port; the monotonic second they started."""
+        self.ports = [_free_port() for _ in range(count)]
+        self.live = list(range(count))
+        spawned = time.monotonic()
+        for replica, port in enumerate(self.ports):
+            self.budget.started(replica, spawned)
+            self.start(f"controller-{replica}", argv(port))
+        return spawned
+
+    def chains(self) -> tuple[int, int, int]:
+        """The account's complete chains; more than ``chains`` fails."""
+        counts = self.aws.chain_counts()
+        if self.limit is not None and max(counts) > self.limit:
+            raise PhaseError(f"{self.phase}: chain counts {counts} exceed {self.limit}: duplicates")
+        return counts
+
+    def wait(self, what: str, probe, start: float, every: float = 0.25,
+             deadline: float = PROCESS_DEADLINE):
+        """Poll ``probe`` every ``every`` s until it returns a true value,
+        and return that; fail when a child not killed here has exited,
+        when the account holds too many chains, and once ``deadline`` s
+        have passed since ``start``."""
+        while True:
+            if time.monotonic() - start > deadline:
+                raise PhaseError(f"{self.phase}: no {what} within {deadline} s")
+            for child in self.children:
+                if child not in self.killed:
+                    child.check_alive()
+            if self.limit is not None:
+                self.chains()
+            value = probe()
+            if value:
+                return value
+            time.sleep(every)
+
+    def placement(self, shards: set, balanced: bool = False) -> dict | None:
+        """The shards each live replica holds by its ``/healthz`` once
+        every one of ``shards`` is held (with ``balanced``, one by each
+        replica), else None.  With no key placed yet, placement has
+        nothing to balance: a replica that started first may claim every
+        shard before the other is up, and sheds one only once the
+        fleet's keys weigh."""
+        try:
+            owned = {
+                r: set(_get_json(f"http://127.0.0.1:{self.ports[r]}/healthz")["sharding"].get("owned", ()))
+                for r in self.live
+            }
+        except OSError:
+            return None
+        if set().union(*owned.values()) != shards:
+            return None
+        return owned if not balanced or all(len(o) == 1 for o in owned.values()) else None
+
+    def read(self, metrics: bool = True) -> dict[int, dict] | None:
+        """Every live replica as ``scrape_replica`` reads it, the budget
+        held; None while one does not answer."""
+        try:
+            before = {
+                r: _get_json(f"http://127.0.0.1:{self.ports[r]}/healthz")["sharding"].get("owned")
+                for r in (self.live if self.owners_only else ())
+            }
+            scrapes = {r: scrape_replica(self.ports[r], metrics) for r in self.live}
+        except OSError:
+            return None
+        held = scrapes
+        if self.owners_only:
+            # an owner held a shard both before and after its ceilings
+            # were read: a replica that claims its first shard in between
+            # was read at the floor, not at its slice
+            held = {
+                r: {**s, "ceilings": s["ceilings"] if before[r] and s["sharding"].get("owned") else {}}
+                for r, s in scrapes.items()
+            }
+        self.budget.hold(held)
+        return scrapes
+
+    def create(self, kind: str, objects: list, before=None) -> None:
+        """Create ``objects`` of ``kind``, ``RESIZE_BATCH`` at a time,
+        calling ``before()`` ahead of each; a reset connection is tried
+        again (the test apiserver's accept backlog overflows under the
+        replicas' own requests), and an object a lost answer created
+        counts."""
+        def one(obj) -> None:
+            if before is not None:
+                before()
+            for attempt in range(3):
+                try:
+                    self.client.create(kind, obj)
+                    return
+                except self.pkg.errors.AlreadyExistsError:
+                    if not attempt:
+                        raise
+                    return
+                except ConnectionError:
+                    if attempt == 2:
+                        raise
+                    time.sleep(0.1)
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=RESIZE_BATCH) as pool:
+            list(pool.map(one, objects))
+
+    def holder(self, shard: int, shards: set) -> tuple[int, list[int]]:
+        """The live replica holding ``shard`` once all of ``shards`` are
+        held, and the shards it holds."""
+        owned = self.wait(
+            f"read of shards {sorted(shards)} held", lambda: self.placement(shards), time.monotonic()
+        )
+        (replica,) = [r for r in self.live if shard in owned[r]]
+        return replica, sorted(owned[replica])
+
+    def kill(self, replica: int) -> dict:
+        """SIGKILL live replica ``replica`` after one last read of it (the
+        budget held); that read."""
+        last = scrape_replica(self.ports[replica])
+        self.budget.hold({replica: last})
+        child = self.children[replica]
+        child.popen.send_signal(signal.SIGKILL)
+        child.popen.wait(timeout=EXIT_DEADLINE)
+        self.killed_at = time.monotonic()
+        self.killed.append(child)
+        self.live.remove(replica)
+        return last
+
+    def takeover(self, done) -> float:
+        """Wait until ``done`` holds for the survivor's ``/healthz``
+        sharding block, each read holding the budget; the seconds since
+        the kill."""
+        (survivor,) = self.live
+
+        def probe() -> bool:
+            views = self.read()
+            return views is not None and done(views[survivor]["sharding"])
+
+        self.wait("takeover by the survivor", probe, self.killed_at)
+        return time.monotonic() - self.killed_at
+
+    def explained(self, keys):
+        """A probe: true once every one of ``keys`` has been answered
+        ``converged`` by some live replica's ``/debug/explain`` (a donor
+        may still hold the journey of a key it stopped serving at its
+        drain; the owner's answer is the one that counts)."""
+        pending = set(keys)
+
+        def probe() -> bool:
+            for key in sorted(pending):
+                for r in self.live:
+                    answer = json.loads(_http(f"http://127.0.0.1:{self.ports[r]}/debug/explain?key={key}"))
+                    if answer["verdict"] == "converged":
+                        pending.discard(key)
+                        break
+            return not pending
+
+        return probe
+
+    def idle(self, within: float = PROCESS_DEADLINE) -> dict[int, dict]:
+        """Wait, at most ``within`` s, until no live replica has a
+        journey in flight (count and oldest age 0); that read."""
+        def probe() -> dict | None:
+            views = self.read()
+            if views is None or any(replica_journeys(v["metrics"]) != (0, 0.0) for v in views.values()):
+                return None
+            return views
+
+        return self.wait("live replica free of journeys in flight", probe, time.monotonic(),
+                         deadline=within)
+
+    def terminate(self, order: list[Child] | None = None, want: dict | None = None) -> dict:
+        """SIGTERM ``order`` (the live replicas), each within
+        ``EXIT_DEADLINE``; each must exit as ``want`` says (0 by
+        default), and no child's stderr may hold a traceback.  The exit
+        statuses."""
+        order = [self.children[r] for r in self.live] if order is None else order
+        exits = {child.name: child.terminate() for child in order}
+        want = {child.name: 0 for child in order} if want is None else want
+        tracebacks = [child.name for child in self.children if "Traceback" in child.stderr()]
+        if exits != want or tracebacks:
+            raise PhaseError(
+                f"{self.phase}: exit statuses {exits} (want {want}), tracebacks from {tracebacks}"
+            )
+        return exits
+
+    def snapshot(self) -> dict:
+        """The account's state as last saved."""
+        return self.pkg.fake_backend.FileBackedFakeAWSBackend(self.env["AGAC_FAKE_STATE"]).snapshot_state()
+
+
+def _watch_reads(state_path: str, view, plan, shared: dict, stop, ready, out_path: str) -> None:
+    """``StateWatch``'s loop, in a process of its own: read the state
+    file every ``RESIZE_POLL`` s until ``stop``, each read through
+    ``view``; then write its faults (at most 20), the read count, the
+    longest gap between reads and what ``view`` kept to ``out_path``."""
+    path = pathlib.Path(state_path)
+    kept: dict = {}
+    faults: list[str] = []
+    polls, max_gap, previous = 0, 0.0, None
+    while True:
+        began = time.monotonic()
+        data = json.loads(path.read_text()) if path.exists() else {}
+        now = time.monotonic()
+        if previous is not None:
+            max_gap = max(max_gap, now - previous)
+        previous, polls = now, polls + 1
+        for fault in view(data, plan, kept, shared, began, now):
+            if len(faults) < 20:
+                faults.append(f"read {polls}: {fault}")
+        ready.set()
+        if stop.wait(RESIZE_POLL):
+            break
+    pathlib.Path(out_path).write_text(
+        json.dumps({**kept, "faults": faults, "polls": polls, "max_gap_s": max_gap})
+    )
+
+
+class StateWatch:
+    """Reads the shared account's state file every ``RESIZE_POLL`` s for
+    as long as the drill lasts, in a process of its own (a thread would
+    share this process's interpreter with the apiserver, which can stall
+    it).  Each read goes to ``view(data, plan, kept, shared, began,
+    now)``, a module-level function (spawn pickles it by name), with the
+    saved state, the drill's ``plan``, a dict the view keeps across
+    reads (handed back in ``result``), the values shared with the drill
+    and the read's start and end (monotonic s); it returns the read's
+    faults.  ``shared`` maps a name to a typecode and an initial value
+    (a list for an array); the drill reads them with ``read`` and writes
+    them with ``set`` and ``add``, the view under ``shared["lock"]``.
+    ``check`` raises a fault of any read, or a gap between reads over
+    ``RESIZE_POLL_BOUND``."""
+
+    def __init__(self, name: str, state_path: str, view, workdir: pathlib.Path,
+                 plan=None, shared: dict | None = None):
+        context = multiprocessing.get_context("spawn")
+        self.name = name
+        self._arrays = {key for key, (_, init) in (shared or {}).items() if isinstance(init, list)}
+        self._shared = {
+            key: (context.Array if key in self._arrays else context.Value)(code, init, lock=False)
+            for key, (code, init) in (shared or {}).items()
+        }
+        self._shared["lock"] = context.Lock()
+        self._stop, self._ready = context.Event(), context.Event()
+        self._out = workdir / f"{name}-watch.json"
+        self._process = context.Process(
+            target=_watch_reads, name=f"{name}-watch", daemon=True,
+            args=(state_path, view, plan, self._shared, self._stop, self._ready, str(self._out)),
+        )
+        self.result: dict = {}
+
+    def read(self) -> dict:
+        with self._shared["lock"]:
+            return {
+                key: value[:] if key in self._arrays else value.value
+                for key, value in self._shared.items() if key != "lock"
+            }
+
+    def set(self, key: str, value, index: int | None = None) -> None:
+        with self._shared["lock"]:
+            if index is None:
+                self._shared[key].value = value
+            else:
+                self._shared[key][index] = value
+
+    def add(self, key: str, amount: int = 1) -> None:
+        with self._shared["lock"]:
+            self._shared[key].value += amount
+
+    def __enter__(self) -> "StateWatch":
+        self._process.start()
+        if not self._ready.wait(PROCESS_DEADLINE):
+            self._process.kill()
+            raise PhaseError(f"the {self.name} watch never read the state file")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._process.join(JOIN_TIMEOUT)
+        if self._process.is_alive():
+            self._process.kill()
+            self._process.join(JOIN_TIMEOUT)
+        if self._out.exists():
+            self.result = json.loads(self._out.read_text())
+
+    def check(self) -> None:
+        result = self.result
+        if self._process.exitcode != 0 or not result.get("polls"):
+            raise PhaseError(f"the {self.name} watch exited {self._process.exitcode}")
+        if result["faults"]:
+            raise PhaseError(f"the {self.name} watch: {result['faults']}")
+        if result["max_gap_s"] > RESIZE_POLL_BOUND:
+            raise PhaseError(
+                f"the {self.name} watch went {result['max_gap_s']} s between reads "
+                f"(bound {RESIZE_POLL_BOUND} s)"
+            )
+
+
+def owner_tag(entry: dict) -> str | None:
+    """The owner tag of an accelerator entry of the state file."""
+    return dict(map(tuple, entry["tags"])).get("aws-global-accelerator-owner")
+
+
+def repeated_owners(accelerators: list[dict]) -> list[str]:
+    """The owner tags that more than one accelerator entry carries."""
+    counts = collections.Counter(owner_tag(entry) for entry in accelerators)
+    return sorted(owner for owner, count in counts.items() if owner and count > 1)
+
+
+def duplicate_view(data: dict, plan, kept: dict, shared: dict, began: float, now: float) -> list[str]:
+    """``StateWatch``'s duplicate check: an owner tag that repeats, or
+    more accelerators, listeners or endpoint groups than Services whose
+    create was sent (``shared["sent"]``, read after the state: every
+    accelerator in it belongs to a Service counted before)."""
+    accelerators = data.get("accelerators", [])
+    chains = (
+        len(accelerators),
+        sum(len(entry["listeners"]) for entry in accelerators),
+        len(data.get("endpoint_groups", [])),
+    )
+    created = shared["sent"].value
+    repeated = repeated_owners(accelerators)
+    if repeated or max(chains) > created:
+        return [f"chains {chains} for {created} Services created, owners repeated {repeated}"]
+    return []
+
+
+# ---------------------------------------------------------------------------
+# the process phase
+# ---------------------------------------------------------------------------
 
 def _review(pkg, operation: str, old, new) -> dict:
     wire = pkg.serde.to_wire
@@ -985,15 +1344,11 @@ def _review(pkg, operation: str, old, new) -> dict:
     return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview", "request": request}
 
 
-def _check_webhook(pkg, package: str, env: dict, workdir: pathlib.Path, children: list) -> dict:
+def _check_webhook(pkg, package: str, fleet: ProcessFleet) -> dict:
     """``python -m <package> webhook``: an ``EndpointGroupArn`` change is
     denied and a create allowed."""
     port = _free_port()
-    webhook = Child(
-        "webhook", [sys.executable, "-m", package, "webhook", "--ssl=false", "--port", str(port)],
-        env, workdir,
-    )
-    children.append(webhook)
+    fleet.start("webhook", [sys.executable, "-m", package, "webhook", "--ssl=false", "--port", str(port)])
 
     def healthy() -> bool:
         try:
@@ -1001,7 +1356,7 @@ def _check_webhook(pkg, package: str, env: dict, workdir: pathlib.Path, children
         except OSError:
             return False
 
-    _wait_for("webhook /healthz", healthy, [webhook], time.monotonic())
+    fleet.wait("webhook /healthz", healthy, time.monotonic())
     url = f"http://127.0.0.1:{port}/validate-endpointgroupbinding"
     group = "arn:aws:globalaccelerator::123456789012:accelerator/a/listener/l/endpoint-group/"
     old, new = make_binding(pkg, 0, group + "1"), make_binding(pkg, 0, group + "2")
@@ -1016,9 +1371,9 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
     """Seed an HTTP apiserver with ``n`` Services and ``n // 10``
     Ingresses, run two ``python -m <package> controller`` replicas and
     the webhook against it, require convergence read over the wire, and
-    stop every child with SIGTERM.  Returns the run's times, the Events
-    as (reason, kind, namespace/name) triples, every object's explain
-    verdict, and each child's exit status and peak RSS."""
+    stop every child with SIGTERM.  Returns the Events as (reason, kind,
+    namespace/name) triples, every object's explain verdict, and each
+    child's exit status."""
     n_ing = scaled_counts(n)[0]
     services = [make_process_service(pkg, i) for i in range(n)]
     ingresses = [make_ingress(pkg, j) for j in range(n_ing)]
@@ -1041,22 +1396,14 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
         AGAC_FAKE_QUOTA_ACCELERATORS=str(n + n_ing + 50),
         POD_NAMESPACE=LEASE_NAMESPACE,
     )
-    server = pkg.testserver.TestApiServer().start()
-    children: list[Child] = []
-    try:
+    with ProcessFleet(pkg, "process", workdir, env) as fleet:
         for kind, obj in objects:  # in storage, before any controller starts
-            server.cluster.create(kind, obj)
-        kubeconfig = write_kubeconfig(workdir, server.url)
-        client = pkg.rest.RestClusterClient(server.url)
-        ports = [_free_port(), _free_port()]
-        start = time.monotonic()
-        for replica, port in enumerate(ports):
-            children.append(Child(
-                f"controller-{replica}",
-                [sys.executable, "-m", package, *CHART_ARGS, "--kubeconfig", str(kubeconfig),
-                 "--health-port", str(port)],
-                env, workdir,
-            ))
+            fleet.server.cluster.create(kind, obj)
+        start = fleet.spawn(2, lambda port: [
+            sys.executable, "-m", package, *CHART_ARGS, "--kubeconfig", str(fleet.kubeconfig),
+            "--health-port", str(port),
+        ])
+        client = fleet.client
 
         def holder() -> str:
             try:
@@ -1064,14 +1411,13 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
             except pkg.errors.NotFoundError:
                 return ""
 
-        leader_id = _wait_for("Lease holder", holder, children, start)
-        lease_s = time.monotonic() - start
+        leader_id = fleet.wait("Lease holder", holder, start)
 
         def logged_by() -> list[int]:  # each replica logs its elector identity
             line = f"leader election id: {leader_id}"
-            return [replica for replica, c in enumerate(children) if line in c.stderr()]
+            return [replica for replica, c in enumerate(fleet.children) if line in c.stderr()]
 
-        (leader,) = _wait_for("leader's identity in a replica's log", logged_by, children, start)
+        (leader,) = fleet.wait("leader's identity in a replica's log", logged_by, start)
 
         def events() -> set:
             return {
@@ -1080,8 +1426,7 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
                 for e in client.list("Event")[0]
             }
 
-        _wait_for("full set of Events", lambda: expected <= events(), children, start)
-        events_s = time.monotonic() - start
+        fleet.wait("full set of Events", lambda: expected <= events(), start)
 
         pending = {key for _, key in keys}
         verdicts: dict[str, str] = {}
@@ -1089,49 +1434,38 @@ def process(pkg, package: str, n: int, workdir: pathlib.Path) -> dict:
         def converged() -> bool:
             for key in sorted(pending):
                 answer = json.loads(_http(
-                    f"http://127.0.0.1:{ports[leader]}/debug/explain?key={key}"
+                    f"http://127.0.0.1:{fleet.ports[leader]}/debug/explain?key={key}"
                 ))
                 verdicts[key] = answer["verdict"]
                 if answer["verdict"] == "converged":
                     pending.discard(key)
             return not pending
 
-        _wait_for("converged verdict for every object", converged, children, start)
-        converged_s = time.monotonic() - start
+        fleet.wait("converged verdict for every object", converged, start)
         seen = events()
         if holder() != leader_id:
             raise PhaseError(f"the Lease moved from {leader_id} to {holder()} during the run")
         standby = 1 - leader
-        calls = [sum(scrape_replica(port)["calls"].values()) for port in ports]
+        calls = [sum(scrape_replica(port)["calls"].values()) for port in fleet.ports]
         if calls[standby] != 0 or calls[leader] == 0:
             raise PhaseError(f"AWS calls per replica {calls}: the standby (replica {standby}) called AWS")
-        webhook = _check_webhook(pkg, package, env, workdir, children)
+        webhook = _check_webhook(pkg, package, fleet)
         # the standby first: stopped after the leader, it may take the
         # lease the leader released and be stopped while its controllers
-        # wait for their caches
-        order = [children[standby], children[leader], *children[2:]]
-        exits = {child.name: child.terminate() for child in order}
-    finally:
-        for child in children:
-            child.kill()
-        server.stop()
-    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
-    # the controllers return 0 from their signal handler; the webhook,
-    # like the reference's, installs none and ends by SIGTERM itself
-    want = {c.name: 0 for c in children if c.name != "webhook"} | {"webhook": -signal.SIGTERM}
-    if exits != want or tracebacks:
-        raise PhaseError(f"exit statuses {exits} (want {want}), tracebacks from {tracebacks}")
+        # wait for their caches.  The controllers return 0 from their
+        # signal handler; the webhook, like the reference's, installs
+        # none and ends by SIGTERM itself
+        controllers = [fleet.children[standby], fleet.children[leader]]
+        exits = fleet.terminate(
+            [*controllers, *fleet.children[2:]],
+            {c.name: 0 for c in controllers} | {"webhook": -signal.SIGTERM},
+        )
     return {
         "services": n,
         "ingresses": n_ing,
-        "lease_s": lease_s,
-        "events_s": events_s,
-        "converged_s": converged_s,
-        "objects_per_s": len(keys) / converged_s,
         "aws_calls": calls,
         "leader": leader,
         "webhook": webhook,
-        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
         "exits": exits,
         "events": sorted(seen),
         "verdicts": verdicts,
@@ -1165,8 +1499,7 @@ def make_shard_service(pkg, i: int):
 
 def journey_counts(pkg, texts: list[str]) -> dict:
     """Journeys closed, by trigger, and still in flight over the
-    fleet-merged exposition of ``texts``, with the GA controllers'
-    converge percentiles."""
+    fleet-merged exposition of ``texts``."""
     families, _ = pkg.fleet.merge_expositions({f"replica-{i}": t for i, t in enumerate(texts)})
     empty = pkg.fleet.Family("")
     closed = {"spec": 0, "handoff": 0, "resize": 0}
@@ -1175,50 +1508,7 @@ def journey_counts(pkg, texts: list[str]) -> dict:
             if "_count{" in sample and f'trigger="{trigger}"' in sample:
                 closed[trigger] += int(value)
     inflight = sum(families.get("agac_journey_inflight", empty).samples.values())
-    ga = pkg.fleet.converge_percentiles(families)["ga"]
-    ga_resize = trigger_percentiles(pkg, families, "resize")
-    return {**closed, "inflight": int(inflight), "ga": ga, "ga_resize": ga_resize}
-
-
-def trigger_percentiles(pkg, families: dict, trigger: str) -> dict:
-    """The GA controllers' journey count and converge p50/p99 for one
-    ``trigger``, read off the merged histogram as
-    ``converge_percentiles`` reads the spec journeys."""
-    family = families.get("agac_journey_converge_seconds")
-    buckets: dict[float, float] = {}
-    total = 0.0
-    for sample, value in (family.samples.items() if family is not None else ()):
-        if f'trigger="{trigger}"' not in sample or not any(
-            f'controller="{c}"' in sample for c in pkg.slo.GA_CONTROLLERS
-        ):
-            continue
-        if "_bucket{" in sample:
-            le = sample.split('le="', 1)[1].split('"', 1)[0]
-            if le != "+Inf":
-                buckets[float(le)] = buckets.get(float(le), 0.0) + value
-        elif "_count{" in sample:
-            total += value
-    ordered = sorted(buckets.items())
-    return {
-        "count": int(total),
-        "p50_s": pkg.slo.estimate_quantile(ordered, total, 0.5),
-        "p99_s": pkg.slo.estimate_quantile(ordered, total, 0.99),
-    }
-
-
-def flock_op_seconds(pkg, state_path: str, ops: int = 21) -> float:
-    """One mutating call's time under the fake account's flock at the
-    state file's current size, the median of ``ops``: two backends on
-    the file take turns adding a hosted zone, so each reloads the
-    other's write, applies and saves, as a replica's mutation does
-    after another's."""
-    writers = [pkg.fake_backend.FileBackedFakeAWSBackend(state_path) for _ in range(2)]
-    times = []
-    for i in range(ops):
-        start = time.perf_counter()
-        writers[i % 2].add_hosted_zone(f"flock-probe-{i}.example.com")
-        times.append(time.perf_counter() - start)
-    return sorted(times)[ops // 2]
+    return {**closed, "inflight": int(inflight)}
 
 
 def shard_env(n: int, latency: float, workdir: pathlib.Path) -> dict:
@@ -1279,279 +1569,94 @@ def shard_fleet(
     shard (``--shards-per-replica width``), so the survivor can steal
     the dead replica's lease and finish the fleet.
 
-    Beside the bounds it reports where a flattening curve loses its
-    time: the host's cores in use over the run (the replicas' and this
-    process's CPU seconds over the run's seconds), this process's alone
-    (it serves the apiserver, one interpreter), and the share of the
-    run the account's flock was held (mutating calls times
-    ``flock_op_seconds`` at the final state size, an upper bound: the
-    state grows over the run).
-
     Hard bounds (``PhaseError``): every shard lease held by one replica;
-    ``chain_counts() == (n, n, n)``, never more; the fleet's aggregate
-    call rate per service family and its summed AIMD ceilings within
-    ``SHARD_BUDGET_QPS``; ``n`` spec journeys over the fleet-merged
-    metrics (after a kill: the survivor closes a journey for every
-    Service, and none is counted twice as spec); after a kill, the
-    survivor owns every shard; every live replica exits 0 on SIGTERM.
-    Returns the run's times, telemetry and the final AWS state."""
-    env = shard_env(n, latency, workdir)
+    never more than ``n`` complete chains, and ``(n, n, n)`` at the end;
+    the fleet's call rate and summed AIMD ceilings per service family
+    within ``SHARD_BUDGET_QPS`` at every read (before the creates, at
+    the kill, through the takeover, at the last chain and through the
+    settle); ``n`` spec journeys over the fleet-merged metrics (after a
+    kill: the survivor closes a journey for every Service, and none is
+    counted twice as spec); after a kill, the survivor owns every shard;
+    every live replica exits 0 on SIGTERM and no stderr holds a
+    traceback.  Returns the run's placement, calls, journeys, kill and
+    the final AWS state."""
     if width == 1:
         placement = ["--disable-leader-election"]
     else:
         placement = ["--shards-per-replica", str(width if kill_at is not None else 1)]
     shards = set(range(width))
-    server = pkg.testserver.TestApiServer().start()
-    children: list[Child] = []
-    try:
-        kubeconfig = write_kubeconfig(workdir, server.url)
-        ports = [_free_port() for _ in range(width)]
-        spawned = time.monotonic()
-        for replica, port in enumerate(ports):
-            children.append(Child(
-                f"controller-{replica}",
-                shard_controller_argv(package, kubeconfig, port, width, placement),
-                env, workdir,
-            ))
-
-        def owned_sets() -> list[set] | None:
-            try:
-                views = [_get_json(f"http://127.0.0.1:{p}/healthz")["sharding"] for p in ports]
-            except OSError:
-                return None
-            if width == 1:
-                return [shards]
-            owned = [set(v.get("owned", ())) for v in views]
-            return owned if set().union(*owned) == shards else None
-
-        owned = _wait_for("every shard lease held", owned_sets, children, spawned)
-        lease_s = time.monotonic() - spawned
-        if sum(map(len, owned)) != width:
+    env = shard_env(n, latency, workdir)
+    with ProcessFleet(pkg, f"{width} shards", workdir, env, chains=n) as fleet:
+        spawned = fleet.spawn(
+            width, lambda port: shard_controller_argv(package, fleet.kubeconfig, port, width, placement)
+        )
+        # one replica without leader election holds no lease: it is up once it answers
+        owned = fleet.wait(
+            "every shard lease held",
+            lambda: fleet.placement(shards) if width > 1 else fleet.read(metrics=False) and {0: shards},
+            spawned,
+        )
+        if sum(map(len, owned.values())) != width:
             raise PhaseError(f"{width} shards: replicas hold overlapping sets {owned}")
-
-        client = pkg.rest.RestClusterClient(server.url)
-        pids = {r: child.popen.pid for r, child in enumerate(children)}
-        cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
-        own = os.times()
         start = time.monotonic()
-        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-            list(pool.map(lambda i: client.create("Service", make_shard_service(pkg, i)), range(n)))
-        created_s = time.monotonic() - start
-        aws = pkg.fake_backend.FileBackedFakeAWSBackend(env["AGAC_FAKE_STATE"])
-        live = list(range(width))
-        kill = None
-        victim_metrics: list[str] = []
-        victim_calls: dict[str, float] = {}
-        victim_ops: dict[str, float] = {}
-        while True:
-            chains = aws.chain_counts()
-            if max(chains) > n:
-                raise PhaseError(f"{width} shards: chain counts {chains} exceed {n}: duplicates")
-            if chains == (n, n, n) and (kill is None or "takeover_s" in kill):
-                break
-            now = time.monotonic()
-            if now - start > PROCESS_DEADLINE:
-                raise PhaseError(
-                    f"{width} shards: chain counts {chains} of {n} after {now - start} s"
-                )
-            for replica in live:
-                children[replica].check_alive()
-            if kill_at is not None and kill is None and chains[2] >= kill_at * n:
-                views = {r: scrape_replica(ports[r]) for r in live}
-                (victim,) = [r for r, v in views.items() if 0 in v["sharding"]["owned"]]
-                victim_metrics = [views[victim]["metrics"]]
-                victim_calls, victim_ops = views[victim]["calls"], views[victim]["ops"]
-                cpu[victim] += cpu_seconds(pids[victim])
-                children[victim].popen.send_signal(signal.SIGKILL)
-                children[victim].popen.wait(timeout=EXIT_DEADLINE)
-                live.remove(victim)
-                kill = {"victim": victim, "owned": sorted(views[victim]["sharding"]["owned"]),
-                        "chains": list(chains), "at_s": time.monotonic() - start}
-            elif kill is not None and "takeover_s" not in kill:
-                (survivor,) = live
-                view = _get_json(f"http://127.0.0.1:{ports[survivor]}/healthz")["sharding"]
-                if set(view.get("owned", ())) == shards:
-                    kill["takeover_s"] = time.monotonic() - start - kill["at_s"]
-            time.sleep(0.1)
-        elapsed = time.monotonic() - start
-        for r in live:
-            cpu[r] += cpu_seconds(pids[r])
-        own_cpu = sum(os.times()[:2]) - sum(own[:2])
+        fleet.read()  # each read ends a window the budget holds the call rate over
+        fleet.create("Service", [make_shard_service(pkg, i) for i in range(n)])
+        kill, killed = None, []
+        if kill_at is not None:
+            chains = fleet.wait(
+                f"{kill_at:g} of the chains complete",
+                lambda: (counts := fleet.chains())[2] >= kill_at * n and counts, start, every=0.1,
+            )
+            victim, victim_owned = fleet.holder(0, shards)
+            killed.append(fleet.kill(victim))
+            kill = {"victim": victim, "owned": victim_owned, "chains": list(chains)}
+            fleet.takeover(lambda block: set(block.get("owned", ())) == shards)
+        fleet.wait(f"{n} complete chains", lambda: fleet.chains() == (n, n, n), start, every=0.1)
+        fleet.read()
 
-        def settled() -> list[dict] | None:
+        def settled() -> dict | None:
             # the live replicas close a journey per Service, none in flight
-            scrapes = [scrape_replica(ports[r]) for r in live]
-            journeys = journey_counts(pkg, [s["metrics"] for s in scrapes])
-            if journeys["inflight"] or journeys["spec"] + journeys["handoff"] < n:
+            views = fleet.read()
+            if views is None:
                 return None
-            return scrapes
+            journeys = journey_counts(pkg, [v["metrics"] for v in views.values()])
+            return None if journeys["inflight"] or journeys["spec"] + journeys["handoff"] < n else views
 
-        scrapes = _wait_for("every journey closed", settled, [children[r] for r in live], start)
-        if aws.chain_counts() != (n, n, n):
-            raise PhaseError(f"{width} shards: chain counts {aws.chain_counts()} after settling")
-        # the victim's journeys as last scraped before the kill; its
+        views = fleet.wait("every journey closed", settled, start)
+        if fleet.chains() != (n, n, n):
+            raise PhaseError(f"{width} shards: chain counts {fleet.chains()} after settling")
+        # the victim's journeys as last read before the kill; its
         # journeys in flight then died with it, and the survivor's
         # takeover resync closes them as handoff journeys
-        journeys = journey_counts(pkg, [s["metrics"] for s in scrapes] + victim_metrics)
+        scrapes = [*views.values(), *killed]
+        journeys = journey_counts(pkg, [s["metrics"] for s in scrapes])
         journeys["inflight"] = 0  # on the live replicas, as settled() waited for
-        spec_ok = journeys["spec"] == n if kill is None else journeys["spec"] <= n
-        if not spec_ok:
+        if not (journeys["spec"] == n if kill is None else journeys["spec"] <= n):
             raise PhaseError(f"{width} shards: {journeys['spec']} spec journeys for {n} Services")
         if kill is not None:
-            kill["converged_after_s"] = elapsed - kill["at_s"]
-            kill["survivor_owned"] = sorted(scrapes[0]["sharding"]["owned"])
+            (survivor,) = fleet.live
+            kill["survivor_owned"] = sorted(views[survivor]["sharding"]["owned"])
             if set(kill["survivor_owned"]) != shards:
                 raise PhaseError(f"after the kill the survivor owns {kill['survivor_owned']}")
-        calls: dict[str, float] = dict(victim_calls)
-        ops: dict[str, float] = dict(victim_ops)
-        ceilings: dict[str, float] = {}
-        for scrape in scrapes:
-            for family, count in scrape["calls"].items():
-                calls[family] = calls.get(family, 0.0) + count
-            for op, count in scrape["ops"].items():
-                ops[op] = ops.get(op, 0.0) + count
-            for family, ceiling in scrape["ceilings"].items():
-                ceilings[family] = ceilings.get(family, 0.0) + ceiling
-        rates = {family: count / elapsed for family, count in sorted(calls.items())}
-        over = {
-            family: value
-            for family, value in [*rates.items(), *ceilings.items()]
-            if value > SHARD_BUDGET_QPS * 1.001
-        }
-        if over:
-            raise PhaseError(
-                f"{width} shards: call rates {rates} or summed AIMD ceilings {ceilings} "
-                f"exceed the budget of {SHARD_BUDGET_QPS}/s per service"
-            )
-        exits = {children[r].name: children[r].terminate() for r in live}
-    finally:
-        for child in children:
-            child.kill()
-        server.stop()
-    tracebacks = [children[r].name for r in live if "Traceback" in children[r].stderr()]
-    if set(exits.values()) != {0} or tracebacks:
-        raise PhaseError(f"{width} shards: exit statuses {exits}, tracebacks from {tracebacks}")
-    aws_state = pkg.fake_backend.FileBackedFakeAWSBackend(env["AGAC_FAKE_STATE"]).snapshot_state()
-    mutating = pkg.fake_backend._MUTATING_PREFIXES  # the calls that take the flock
-    mutations = sum(count for op, count in ops.items() if op.startswith(mutating))
-    flock_op_s = flock_op_seconds(pkg, env["AGAC_FAKE_STATE"])
+        exits = fleet.terminate()
     return {
         "width": width,
         "services": n,
         "latency_s": latency,
-        "lease_s": lease_s,
-        "create_s": created_s,
-        "elapsed_s": elapsed,
-        "objects_per_s": n / elapsed,
-        "owned": [sorted(s) for s in owned],
-        "aws_calls": {family: int(count) for family, count in sorted(calls.items())},
-        "aggregate_calls_per_s": rates,
-        "aimd_ceiling_sums": dict(sorted(ceilings.items())),
+        "owned": [sorted(owned[r]) for r in sorted(owned)],
+        "aws_calls": {f: int(c) for f, c in sorted(family_sums(s["calls"] for s in scrapes).items())},
+        "aimd_ceiling_sums": dict(sorted(family_sums(v["ceilings"] for v in views.values()).items())),
+        "call_rates_max": dict(sorted(fleet.budget.rates_max.items())),
         "journeys": journeys,
         "kill": kill,
         "exits": exits,
-        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
-        "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
-        "apiserver_cores_busy": own_cpu / elapsed,
-        "mutations": int(mutations),
-        "flock_op_ms": flock_op_s * 1e3,
-        "flock_busy_share": mutations * flock_op_s / elapsed,
-        "aws_state": aws_state,
+        "aws_state": fleet.snapshot(),
     }
 
 
 # ---------------------------------------------------------------------------
 # the resize phase: the live elastic resize over a package's controller processes
 # ---------------------------------------------------------------------------
-
-def _watch_state(package: str, state_path: str, sent, stop, ready, out_path: str) -> None:
-    """``DuplicateWatch``'s loop, in a process of its own: read the
-    state every ``RESIZE_POLL`` s until ``stop``, then write the faults,
-    the read count and the longest gap between reads to ``out_path``."""
-    aws = importlib.import_module(f"{package}.cloudprovider.aws.fake_backend")
-    account = aws.FileBackedFakeAWSBackend(state_path)
-    faults: list[str] = []
-    polls, max_gap, last = 0, 0.0, None
-    while True:
-        # the state first: every accelerator in it belongs to a Service
-        # counted before this read of the count
-        owners = [o for o in account.accelerator_owners().values() if o]
-        chains = account.chain_counts()
-        created = sent.value
-        now = time.monotonic()
-        if last is not None:
-            max_gap = max(max_gap, now - last)
-        last, polls = now, polls + 1
-        repeated = sorted({o for o in owners if owners.count(o) > 1})
-        if (repeated or max(chains) > created) and len(faults) < 20:
-            faults.append(
-                f"read {polls}: chains {chains} for {created} Services created, "
-                f"owners repeated {repeated}"
-            )
-        ready.set()
-        if stop.wait(RESIZE_POLL):
-            break
-    pathlib.Path(out_path).write_text(
-        json.dumps({"faults": faults, "polls": polls, "max_gap_s": max_gap})
-    )
-
-
-class DuplicateWatch:
-    """Reads the shared account's state file every ``RESIZE_POLL`` s for
-    as long as the run lasts, in a process of its own (a thread would
-    share this process's interpreter with the apiserver, which can
-    stall it).  An accelerator owner tag that repeats, or more
-    accelerators than Services whose create was sent, is a duplicate:
-    ``check`` raises it, and a gap between reads over
-    ``RESIZE_POLL_BOUND``."""
-
-    def __init__(self, package: str, state_path: str, workdir: pathlib.Path):
-        context = multiprocessing.get_context("spawn")
-        self._sent = context.Value("i", 0)
-        self._stop, self._ready = context.Event(), context.Event()
-        self._out = workdir / "duplicate-watch.json"
-        self._process = context.Process(
-            target=_watch_state, name="duplicate-watch", daemon=True,
-            args=(package, state_path, self._sent, self._stop, self._ready, str(self._out)),
-        )
-        self.faults: list[str] = []
-        self.polls = 0
-        self.max_gap_s = 0.0
-
-    def sending(self) -> None:
-        """Count one Service as created, before its create is sent."""
-        with self._sent.get_lock():
-            self._sent.value += 1
-
-    def __enter__(self) -> "DuplicateWatch":
-        self._process.start()
-        if not self._ready.wait(PROCESS_DEADLINE):
-            self._process.kill()
-            raise PhaseError("the duplicate watch never read the state file")
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._stop.set()
-        self._process.join(JOIN_TIMEOUT)
-        if self._process.is_alive():
-            self._process.kill()
-            self._process.join(JOIN_TIMEOUT)
-        if self._out.exists():
-            result = json.loads(self._out.read_text())
-            self.faults, self.polls = result["faults"], result["polls"]
-            self.max_gap_s = result["max_gap_s"]
-
-    def check(self) -> None:
-        if self._process.exitcode != 0 or not self.polls:
-            raise PhaseError(f"the duplicate watch exited {self._process.exitcode}")
-        if self.faults:
-            raise PhaseError(f"duplicate accelerators: {self.faults}")
-        if self.max_gap_s > RESIZE_POLL_BOUND:
-            raise PhaseError(
-                f"the duplicate watch went {self.max_gap_s} s between reads "
-                f"(bound {RESIZE_POLL_BOUND} s)"
-            )
-
 
 def resize_cli(package: str, kubeconfig: pathlib.Path, count: int, epoch: int, env: dict) -> str:
     """``python -m <package> resize-shards -n count``, as the runbook
@@ -1578,42 +1683,6 @@ def moved_keys(pkg, n: int, old: int, new: int) -> int:
     return sum(rings[0].shard_for_key(k) != rings[1].shard_for_key(k) for k in keys)
 
 
-HANDOFF_LINE = re.compile(
-    r"^I\d{4} (\d\d):(\d\d):(\d\d)\.(\d{3}) \S+ resize epoch (\d+): shard (\d+) "
-    r"(drained|adopting)\b"
-)
-
-
-def handoff_windows(stderr_texts: list[str], requested: dict[int, float]) -> dict:
-    """Each replica's ``resize epoch E: shard S drained`` and ``...
-    adopting`` log lines, in s after the epoch's request (``requested``:
-    epoch -> local seconds of the day), keyed ``shard@replica``; and per
-    epoch the window from the first drain to the last adoption."""
-    out: dict[str, dict] = {}
-    for replica, text in enumerate(stderr_texts):
-        for line in text.splitlines():
-            match = HANDOFF_LINE.match(line)
-            if match is None:
-                continue
-            h, m, sec, ms, epoch, shard, what = match.groups()
-            if int(epoch) not in requested:
-                continue
-            at = int(h) * 3600 + int(m) * 60 + int(sec) + int(ms) / 1e3
-            entry = out.setdefault(epoch, {"drained": {}, "adopting": {}})
-            entry[what][f"{shard}@{replica}"] = (at - requested[int(epoch)]) % 86400.0
-    for entry in out.values():
-        if entry["drained"] and entry["adopting"]:
-            entry["window_s"] = max(entry["adopting"].values()) - min(entry["drained"].values())
-    return out
-
-
-def _local_seconds() -> float:
-    """Seconds of the local day, the clock the children's log lines read."""
-    now = time.time()
-    local = time.localtime(now)
-    return local.tm_hour * 3600 + local.tm_min * 60 + local.tm_sec + now % 1.0
-
-
 def resize_fleet(pkg, package: str, n: int, latency: float, workdir: pathlib.Path) -> dict:
     """The runbook's live elastic resize (``docs/operations.md:466-475``)
     on ``bench.py``'s sharded fleet: two ``python -m <package>
@@ -1635,274 +1704,160 @@ def resize_fleet(pkg, package: str, n: int, latency: float, workdir: pathlib.Pat
 
     Hard bounds (``PhaseError``): the state file, read every
     ``RESIZE_POLL`` s through the run, never shows an owner tag twice
-    or more accelerators than Services created; ``(n, n, n)`` chains
-    after (b) and after (c); over (a) and (b) the fleet's
-    ``create_accelerator`` calls equal ``n``; summed AIMD ceilings (at
-    every read of the replicas) and the aggregate call rate within
-    ``SHARD_BUDGET_QPS`` per service; every Service's owner answering
-    ``converged`` (no journey in flight) after (b) and after (c), and
-    ``trigger=resize`` journeys closed after (b).  Returns the run's
-    times and telemetry."""
+    or more accelerators than Services created; never more than ``n``
+    complete chains, ``(n, n, n)`` after (b) and after (c); over (a) and
+    (b) the fleet's ``create_accelerator`` calls equal ``n``; summed
+    AIMD ceilings (at every read of the replicas) and the call rate
+    since the previous read of ``/metrics`` within ``SHARD_BUDGET_QPS``
+    per service; every Service's owner answering ``converged`` (no
+    journey in flight) after (b) and after (c), and ``trigger=resize``
+    journeys closed after (b).  Returns the run's placements, journeys,
+    kill, budget maxima, the grow and shrink times (read by
+    ``hack/resize_audit.py``) and the watch's reads."""
     env = shard_env(n, latency, workdir)
-    state_path = env["AGAC_FAKE_STATE"]
     first, resize_at = round(n * RESIZE_FIRST), round(n * RESIZE_AT)
     placement = ["--shards-per-replica", str(RESIZE_CAPACITY)]
-    server = pkg.testserver.TestApiServer().start()
-    children: list[Child] = []
-    ceilings_seen: dict[str, float] = {}
-    live = [0, 1]
-    try:
-        kubeconfig = write_kubeconfig(workdir, server.url)
-        ports = [_free_port() for _ in live]
-        spawned = time.monotonic()
-        for replica, port in enumerate(ports):
-            children.append(Child(
-                f"controller-{replica}",
-                shard_controller_argv(package, kubeconfig, port, RESIZE_FROM, placement),
-                env, workdir,
-            ))
+    services = [make_shard_service(pkg, i) for i in range(n)]
+    keys = [f"default/{svc.metadata.name}" for svc in services]
+    with ProcessFleet(pkg, "resize", workdir, env, chains=n) as fleet:
+        spawned = fleet.spawn(2, lambda port: shard_controller_argv(
+            package, fleet.kubeconfig, port, RESIZE_FROM, placement
+        ))
 
-        def views() -> list[dict] | None:
+        def blocks() -> list[dict] | None:
             """The live replicas' ``/healthz`` sharding blocks; the
             summed AIMD ceilings are held to the budget at every read."""
-            try:
-                blocks = [_get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"] for r in live]
-                sums: dict[str, float] = {}
-                for r in live:
-                    ready = _get_json(f"http://127.0.0.1:{ports[r]}/readyz").get("services", {})
-                    for service, snap in ready.items():
-                        if "aimd_ceiling" in snap:
-                            family = service.split("[", 1)[0]
-                            sums[family] = sums.get(family, 0.0) + snap["aimd_ceiling"]
-            except OSError:
-                return None
-            for family, total in sums.items():
-                ceilings_seen[family] = max(ceilings_seen.get(family, 0.0), total)
-            if any(total > SHARD_BUDGET_QPS * 1.001 for total in sums.values()):
-                raise PhaseError(
-                    f"resize: summed AIMD ceilings {sums} exceed {SHARD_BUDGET_QPS}/s "
-                    f"(sharding {blocks})"
-                )
-            return blocks
+            views = fleet.read(metrics=False)
+            return None if views is None else [views[r]["sharding"] for r in fleet.live]
 
         def stable(count: int, epoch: int) -> list[dict] | None:
-            blocks = views()
-            if blocks is None:
+            seen = blocks()
+            if seen is None:
                 return None
             want = ("stable", f"{count}x64", 0, epoch)
-            for block in blocks:
+            for block in seen:
                 resize = block["resize"]
                 if (resize["state"], resize["ring"], resize["handoff_pending"], resize["epoch"]) != want:
                     return None
-            owned = [set(block["owned"]) for block in blocks]
+            owned = [set(block["owned"]) for block in seen]
             if set().union(*owned) != set(range(count)):
                 return None
             if sum(map(len, owned)) != count:
                 raise PhaseError(f"resize: replicas hold overlapping sets {owned}")
-            return blocks
+            return seen
 
         def held() -> list[dict] | None:
-            blocks = views()
-            if blocks is None or set().union(*(b["owned"] for b in blocks)) != {0, 1}:
+            seen = blocks()
+            if seen is None or set().union(*(b["owned"] for b in seen)) != {0, 1}:
                 return None
-            return blocks
+            return seen
 
-        start_views = _wait_for("shard leases {0, 1} held", held, children, spawned)
-        lease_s = time.monotonic() - spawned
-        client = pkg.rest.RestClusterClient(server.url)
-        aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
-        pids = {r: child.popen.pid for r, child in enumerate(children)}
-        cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
-        own = os.times()
+        def settled(explained):
+            """A probe: once ``explained`` (every Service converged on its
+            owner), the live replicas' reads and journeys."""
+            def probe():
+                views = fleet.read() if explained() else None
+                return views and (views, journey_counts(pkg, [v["metrics"] for v in views.values()]))
+            return probe
 
-        def running() -> list[Child]:
-            return [children[r] for r in live]
-
-        def complete() -> bool:
-            chains = aws.chain_counts()
-            if max(chains) > n:
-                raise PhaseError(f"resize: chain counts {chains} exceed {n}: duplicates")
-            return chains == (n, n, n)
-
-        keys = [f"default/{make_shard_service(pkg, i).metadata.name}" for i in range(n)]
-        pending: set[str] = set()
-
-        def settled():
-            """Every Service's owner answers ``converged`` on
-            ``/debug/explain``: it holds no journey in flight for the
-            key (a donor may still hold the journey of a key it stopped
-            serving at its drain; the owner's answer is the one that
-            counts).  Returns the live replicas' scrapes and journeys."""
-            for key in sorted(pending):
-                verdicts = [
-                    json.loads(_http(f"http://127.0.0.1:{ports[r]}/debug/explain?key={key}"))["verdict"]
-                    for r in live
-                ]
-                if "converged" in verdicts:
-                    pending.discard(key)
-            if pending:
-                return None
-            scrapes = [scrape_replica(ports[r]) for r in live]
-            return scrapes, journey_counts(pkg, [s["metrics"] for s in scrapes])
-
-        with DuplicateWatch(package, state_path, workdir) as watch:
-            def create(i: int) -> None:
-                watch.sending()
-                client.create("Service", make_shard_service(pkg, i))
-
-            def create_all(indices) -> None:
-                with concurrent.futures.ThreadPoolExecutor(max_workers=RESIZE_BATCH) as pool:
-                    list(pool.map(create, indices))
+        start_blocks = fleet.wait("shard leases {0, 1} held", held, spawned)
+        with StateWatch("duplicate", env["AGAC_FAKE_STATE"], duplicate_view, workdir,
+                        shared={"sent": ("i", 0)}) as watch:
+            def create(part: list) -> None:
+                fleet.create("Service", part, before=lambda: watch.add("sent"))
 
             # (a) grow under load
             start = time.monotonic()
-            creator = threading.Thread(target=create_all, args=(range(first),), name="creator")
+            creator = threading.Thread(target=create, args=(services[:first],), name="creator")
             creator.start()
-
-            def chains_at_least(count: int):
-                chains = aws.chain_counts()
-                return chains if chains[2] >= count else None
-
-            chains_at_grow = _wait_for(
-                f"{resize_at} complete chains", lambda: chains_at_least(resize_at), running(), start
+            chains_at_grow = fleet.wait(
+                f"{resize_at} complete chains",
+                lambda: (counts := fleet.chains())[2] >= resize_at and counts, start,
             )
             creator.join()
-            calls_before = sum(sum(scrape_replica(ports[r])["calls"].values()) for r in live)
-            grow_local, grow_at = _local_seconds(), time.monotonic()
-            grow_out = resize_cli(package, kubeconfig, RESIZE_TO, 1, env)
-            create_all(range(first, n))
-            after_creates = views() or []
+            grow_at = time.monotonic()
+            grow_out = resize_cli(package, fleet.kubeconfig, RESIZE_TO, 1, env)
+            create(services[first:])
             # (b) the new ring, stable everywhere, and every chain complete
-            grown = _wait_for(
-                f"ring {RESIZE_TO}x64 stable", lambda: stable(RESIZE_TO, 1), running(), grow_at
-            )
+            grown = fleet.wait(f"ring {RESIZE_TO}x64 stable", lambda: stable(RESIZE_TO, 1), grow_at)
             grow_s = time.monotonic() - grow_at
-            _wait_for(f"{n} complete chains", complete, running(), grow_at)
-            converged_s = time.monotonic() - start
-            pending.update(keys)
-            grow_scrapes, grow_journeys = _wait_for(
-                "every Service converged on its owner after the grow", settled, running(), grow_at
+            fleet.wait(f"{n} complete chains", lambda: fleet.chains() == (n, n, n), grow_at)
+            grow_views, grow_journeys = fleet.wait(
+                "Service left unconverged after the grow", settled(fleet.explained(keys)), grow_at
             )
-            grow_elapsed = time.monotonic() - start
-            grow_calls: dict[str, float] = {}
-            creates = 0.0
-            for scrape in grow_scrapes:
-                creates += scrape["ops"].get("create_accelerator", 0.0)
-                for family, count in scrape["calls"].items():
-                    grow_calls[family] = grow_calls.get(family, 0.0) + count
+            creates = family_sums(v["ops"] for v in grow_views.values()).get("create_accelerator", 0.0)
             if creates != n:
                 raise PhaseError(f"resize: {creates} create_accelerator calls for {n} Services")
             if grow_journeys["resize"] == 0:
                 trail = [
-                    f"{c.name}: {line}" for c in children for line in c.stderr().splitlines()
+                    f"{c.name}: {line}" for c in fleet.children for line in c.stderr().splitlines()
                     if re.search(r"resize epoch|resync|shed|lease (acquired|lost|stolen)", line)
                 ]
                 raise PhaseError(
                     f"resize: no trigger=resize journey after the grow: {grow_journeys}; "
                     f"the replicas' placement log: {trail[-40:]}"
                 )
-            if aws.chain_counts() != (n, n, n):
-                raise PhaseError(f"resize: chain counts {aws.chain_counts()} after the grow")
-            grow_rates = {f: c / grow_elapsed for f, c in sorted(grow_calls.items())}
+            if fleet.chains() != (n, n, n):
+                raise PhaseError(f"resize: chain counts {fleet.chains()} after the grow")
 
             # (c) shrink, and kill the holder of shard 0 mid-transition
-            shrink_local, shrink_at = _local_seconds(), time.monotonic()
-            resize_cli(package, kubeconfig, RESIZE_FROM, 2, env)
+            shrink_at = time.monotonic()
+            resize_cli(package, fleet.kubeconfig, RESIZE_FROM, 2, env)
 
             def mid_transition() -> list[dict] | None:
-                blocks = views()
-                if blocks is None:
+                seen = blocks()
+                if seen is None:
                     return None
-                states = [b["resize"]["state"] for b in blocks]
-                if any(s in RESIZE_STATES for s in states):
-                    return blocks
-                if all(b["resize"]["epoch"] == 2 for b in blocks):
-                    raise PhaseError(f"resize: the shrink completed before the kill: {blocks}")
+                # the kill's victim holds shard 0, which is free for a moment
+                # while it moves
+                if any(b["resize"]["state"] in RESIZE_STATES for b in seen) and any(
+                    0 in b["owned"] for b in seen
+                ):
+                    return seen
+                if all(b["resize"]["epoch"] == 2 for b in seen):
+                    raise PhaseError(f"resize: the shrink completed before the kill: {seen}")
                 return None
 
-            while (seen := mid_transition()) is None:
-                for child in running():
-                    child.check_alive()
-                if time.monotonic() - shrink_at > PROCESS_DEADLINE:
-                    raise PhaseError("resize: no replica entered the shrink")
-                time.sleep(0.02)
-            (victim,) = [r for r, b in zip(live, seen) if 0 in b["owned"]]
-            victim_scrape = scrape_replica(ports[victim])
-            cpu[victim] += cpu_seconds(pids[victim])
-            children[victim].popen.send_signal(signal.SIGKILL)
-            children[victim].popen.wait(timeout=EXIT_DEADLINE)
-            killed_at = time.monotonic()
+            seen = fleet.wait("replica in the shrink", mid_transition, shrink_at, every=0.02)
+            (victim,) = [r for r, b in zip(fleet.live, seen) if 0 in b["owned"]]
             kill = {
                 "victim": victim,
                 "states": [b["resize"]["state"] for b in seen],
-                "owned": sorted(seen[live.index(victim)]["owned"]),
-                "at_s": killed_at - shrink_at,
+                "owned": sorted(seen[fleet.live.index(victim)]["owned"]),
             }
-            live.remove(victim)
-            (survivor,) = live
-
-            def took_over() -> bool:
-                blocks = views()
-                if blocks is None:
-                    return False
-                identity, holders = blocks[0]["identity"], blocks[0]["holders"]
-                return stable(RESIZE_FROM, 2) is not None or all(
-                    holders.get(str(s)) == identity for s in kill["owned"]
-                )
-
-            _wait_for("the survivor's steal", took_over, running(), killed_at)
-            kill["takeover_s"] = time.monotonic() - killed_at
-            shrunk = _wait_for(
-                f"the survivor stable at {RESIZE_FROM}x64", lambda: stable(RESIZE_FROM, 2),
-                running(), killed_at,
+            fleet.kill(victim)
+            fleet.takeover(lambda block: stable(RESIZE_FROM, 2) is not None or all(
+                block["holders"].get(str(s)) == block["identity"] for s in kill["owned"]
+            ))
+            shrunk = fleet.wait(
+                f"survivor stable at {RESIZE_FROM}x64", lambda: stable(RESIZE_FROM, 2), fleet.killed_at
             )
-            kill["stable_after_kill_s"] = time.monotonic() - killed_at
             shrink_s = time.monotonic() - shrink_at
             if sorted(shrunk[0]["owned"]) != [0, 1]:
                 raise PhaseError(f"resize: the survivor owns {shrunk[0]['owned']}")
-            _wait_for(f"{n} complete chains after the kill", complete, running(), killed_at)
-            pending.update(keys)
-            survivor_scrapes, survivor_journeys = _wait_for(
-                "every Service converged on the survivor", settled, running(), killed_at
+            fleet.wait(f"{n} complete chains after the kill", lambda: fleet.chains() == (n, n, n),
+                       fleet.killed_at)
+            _, survivor_journeys = fleet.wait(
+                "Service left unconverged on the survivor", settled(fleet.explained(keys)),
+                fleet.killed_at,
             )
-            elapsed = time.monotonic() - start
             time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
         watch.check()
-        if aws.chain_counts() != (n, n, n):
-            raise PhaseError(f"resize: chain counts {aws.chain_counts()} after the kill")
-        calls = dict(victim_scrape["calls"])
-        for family, count in survivor_scrapes[0]["calls"].items():
-            calls[family] = calls.get(family, 0.0) + count
-        rates = {f: c / elapsed for f, c in sorted(calls.items())}
-        if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*grow_rates.values(), *rates.values()]):
-            raise PhaseError(f"resize: call rates {grow_rates}, {rates} exceed {SHARD_BUDGET_QPS}/s")
-        cpu[survivor] += cpu_seconds(pids[survivor])
-        own_cpu = sum(os.times()[:2]) - sum(own[:2])
-        exit_status = children[survivor].terminate()
-    finally:
-        for child in children:
-            child.kill()
-        server.stop()
-    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
-    if exit_status != 0 or tracebacks:
-        raise PhaseError(f"resize: the survivor exited {exit_status}, tracebacks from {tracebacks}")
-    moved_grow = moved_keys(pkg, n, RESIZE_FROM, RESIZE_TO)
+        if fleet.chains() != (n, n, n):
+            raise PhaseError(f"resize: chain counts {fleet.chains()} after the kill")
+        (exit_status,) = fleet.terminate().values()
     return {
         "services": n,
         "latency_s": latency,
-        "lease_s": lease_s,
-        "start_owned": [sorted(b["owned"]) for b in start_views],
+        "start_owned": [sorted(b["owned"]) for b in start_blocks],
         "chains_at_grow": list(chains_at_grow),
         "grow_stdout": grow_out.strip().splitlines()[-1],
-        "states_after_mid_creates": [b["resize"]["state"] for b in after_creates],
         "grow_s": grow_s,
         "grown_owned": [sorted(b["owned"]) for b in grown],
-        "converged_s": converged_s,
         "create_accelerator": int(creates),
         "grow_journeys": grow_journeys,
-        "grow_call_rates": grow_rates,
-        "moved_keys_grow": {"ring": moved_grow, "resize_journeys": grow_journeys["resize"]},
-        "grow_calls_per_moved_key": (sum(grow_calls.values()) - calls_before) / moved_grow,
+        "moved_keys_grow": {"ring": moved_keys(pkg, n, RESIZE_FROM, RESIZE_TO),
+                            "resize_journeys": grow_journeys["resize"]},
         "kill": kill,
         "shrink_s": shrink_s,
         "moved_keys_shrink": {
@@ -1910,17 +1865,10 @@ def resize_fleet(pkg, package: str, n: int, latency: float, workdir: pathlib.Pat
             "survivor_resize_journeys": survivor_journeys["resize"],
         },
         "survivor_journeys": survivor_journeys,
-        "call_rates": rates,
-        "aimd_ceiling_sums_max": dict(sorted(ceilings_seen.items())),
-        "handoff_windows": handoff_windows(
-            [c.stderr() for c in children], {1: grow_local, 2: shrink_local}
-        ),
-        "watch": {"polls": watch.polls, "max_gap_s": watch.max_gap_s},
-        "elapsed_s": elapsed,
-        "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
-        "apiserver_cores_busy": own_cpu / elapsed,
+        "call_rates_max": dict(sorted(fleet.budget.rates_max.items())),
+        "aimd_ceiling_sums_max": dict(sorted(fleet.budget.ceilings_max.items())),
+        "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"]},
         "exit": exit_status,
-        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
     }
 
 
@@ -1960,43 +1908,6 @@ def replica_journeys(metrics: str) -> tuple[int, float]:
     return int(inflight), max(ages, default=0.0)
 
 
-class BudgetWatch:
-    """A fleet's AWS call rates between reads and its summed AIMD
-    ceilings, held to ``SHARD_BUDGET_QPS`` per service family at every
-    read, with the largest of each seen (``rates_max``,
-    ``ceilings_max``)."""
-
-    def __init__(self, phase: str):
-        self.phase = phase
-        self.rates_max: dict[str, float] = {}
-        self.ceilings_max: dict[str, float] = {}
-        self._last: dict[int, tuple[float, dict]] = {}
-
-    def hold(self, scrapes: dict[int, dict], now: float) -> None:
-        """Hold one read: ``scrapes`` (``scrape_replica`` per replica)
-        taken at ``now`` (monotonic s)."""
-        rates: dict[str, float] = {}
-        ceilings: dict[str, float] = {}
-        for r, scrape in scrapes.items():
-            if r in self._last and now > self._last[r][0]:
-                then, before = self._last[r]
-                for family, count in scrape["calls"].items():
-                    delta = count - before["calls"].get(family, 0.0)
-                    rates[family] = rates.get(family, 0.0) + delta / (now - then)
-            self._last[r] = (now, scrape)
-            for family, ceiling in scrape["ceilings"].items():
-                ceilings[family] = ceilings.get(family, 0.0) + ceiling
-        for family, value in rates.items():
-            self.rates_max[family] = max(self.rates_max.get(family, 0.0), value)
-        for family, value in ceilings.items():
-            self.ceilings_max[family] = max(self.ceilings_max.get(family, 0.0), value)
-        if any(v > SHARD_BUDGET_QPS * 1.001 for v in [*rates.values(), *ceilings.values()]):
-            raise PhaseError(
-                f"{self.phase}: call rates {rates} or summed AIMD ceilings {ceilings} exceed "
-                f"{SHARD_BUDGET_QPS}/s per service"
-            )
-
-
 def autoscale_fleet(
     pkg,
     package: str,
@@ -2030,9 +1941,10 @@ def autoscale_fleet(
     scale-out suppressed by ``observe-only``, and a replica's
     ``agac_autoscaler_target_shards`` reads 4 during the wave.  Both: the
     state file, read every ``RESIZE_POLL`` s, never shows an owner tag
-    twice or more accelerators than Services sent; ``(n, n, n)`` chains
-    at the end and ``n`` ``create_accelerator`` calls; at every read the
-    summed AIMD ceilings, and the fleet's call rate since the previous
+    twice or more accelerators than Services sent; never more than
+    ``n`` complete chains, ``(n, n, n)`` at the end and ``n``
+    ``create_accelerator`` calls; at every read the AIMD ceilings summed
+    over shard owners, and the fleet's call rate since the previous
     read, within ``SHARD_BUDGET_QPS`` per service; every Service
     ``converged`` on its owner's ``/debug/explain``; within
     ``AUTOSCALE_SETTLE_S`` s of the last chain completing with the ring
@@ -2046,7 +1958,6 @@ def autoscale_fleet(
     n = n_base + n_wave
     name = "observe-only" if observe_only else "acting"
     env = shard_env(n, latency, workdir)
-    state_path = env["AGAC_FAKE_STATE"]
     placement = [
         "--shards-per-replica", "1", "--autoscale",
         "--autoscale-min-shards", str(AUTOSCALE_FROM),
@@ -2057,285 +1968,186 @@ def autoscale_fleet(
         "--autoscale-cooldown-in", f"{AUTOSCALE_COOLDOWN_IN:g}",
         *(["--autoscale-observe-only"] if observe_only else []),
     ]
-    server = pkg.testserver.TestApiServer().start()
-    children: list[Child] = []
-    ceilings_seen: dict[str, float] = {}
-    rates_seen: dict[str, float] = {}
+    services = [make_shard_service(pkg, i) for i in range(n)]
     epochs: dict[int, float] = {}  # ring epoch -> this process's clock when first seen
-    target_seen = {"max": 0.0}
+    stable_at: dict[int, float] = {}
+    target_max = 0.0
+    scale_out = drained_at = calm_since = settle_s = end_at = None
     ring_name = pkg.sharding.ring_lease_name()
     ring_stop = threading.Event()
+    ring_watch = None
 
-    def watch_ring() -> None:
+    def watch_ring(cluster) -> None:
         """Stamp each ring epoch as the apiserver stores it: the phase's
         reads of the replicas take a while, a watch on the Leases does not."""
-        for event in server.cluster.watch("Lease", "0", ring_stop.is_set):
+        for event in cluster.watch("Lease", "0", ring_stop.is_set):
             lease = event.obj
             if lease.metadata.name == ring_name:
                 anns = lease.metadata.annotations or {}
                 epochs.setdefault(int(anns.get(pkg.sharding.membership.ANN_EPOCH, 0) or 0),
                                   time.monotonic())
 
-    ring_watch = threading.Thread(target=watch_ring, name="ring-watch", daemon=True)
-    ring_watch.start()
     try:
-        kubeconfig = write_kubeconfig(workdir, server.url)
-        ports = [_free_port() for _ in range(AUTOSCALE_REPLICAS)]
-        spawned = time.monotonic()
-        for replica, port in enumerate(ports):
-            children.append(Child(
-                f"controller-{replica}",
-                shard_controller_argv(
-                    package, kubeconfig, port, AUTOSCALE_FROM, placement, AUTOSCALE_QUEUE
-                ),
-                env, workdir,
+        with ProcessFleet(pkg, f"autoscale {name}", workdir, env, chains=n, owners_only=True) as fleet:
+            ring_watch = threading.Thread(
+                target=watch_ring, args=(fleet.server.cluster,), name="ring-watch", daemon=True
+            )
+            ring_watch.start()
+            spawned = fleet.spawn(AUTOSCALE_REPLICAS, lambda port: shard_controller_argv(
+                package, fleet.kubeconfig, port, AUTOSCALE_FROM, placement, AUTOSCALE_QUEUE
             ))
-        last_calls: list = []  # [time, {family: calls}] at the previous read
 
-        def read() -> list[dict] | None:
-            """One read of the ring lease and every replica; the
-            every-read bounds are held here."""
-            try:
-                epoch = pkg.sharding.ring_status(server.cluster)["epoch"]
-            except RuntimeError:
-                return None  # no replica has created the ring lease yet
-            now = time.monotonic()
-            epochs.setdefault(epoch, now)
-            if (observe_only and epoch != 0) or epoch > 2:
-                raise PhaseError(f"autoscale {name}: ring epoch {epoch} (epochs seen {sorted(epochs)})")
-            try:
-                owned_before = [
-                    _get_json(f"http://127.0.0.1:{port}/healthz")["sharding"].get("owned")
-                    for port in ports
-                ]
-                views = [scrape_replica(port) for port in ports]
-            except OSError:
-                return None
-            if None in owned_before or any("owned" not in view["sharding"] for view in views):
-                return None  # a replica serves /healthz before its membership exists
-            ceilings: dict[str, float] = {}
-            calls: dict[str, float] = {}
-            for before, view in zip(owned_before, views):
-                # over shard owners, as docs/operations.md ("Quota
-                # division") states the fleet bound: a replica holding
-                # no shard idles at the limiter's 0.5/s floor with no
-                # key to call AWS for.  An owner is one that held a
-                # shard both before and after its ceilings were read: a
-                # replica that claims its first shard in between was
-                # read at the floor, not at its slice
-                for family, ceiling in view["ceilings"].items():
-                    if before and view["sharding"]["owned"]:
-                        ceilings[family] = ceilings.get(family, 0.0) + ceiling
-                for family, count in view["calls"].items():
-                    calls[family] = calls.get(family, 0.0) + count
-                targets = metric_samples(view["metrics"], "agac_autoscaler_target_shards")
-                target_seen["max"] = max(target_seen["max"], *targets.values(), 0.0)
-            for family, total in ceilings.items():
-                ceilings_seen[family] = max(ceilings_seen.get(family, 0.0), total)
-            if last_calls and now - last_calls[0] >= 1.0:
-                for family, count in calls.items():
-                    rate = (count - last_calls[1].get(family, 0.0)) / (now - last_calls[0])
-                    rates_seen[family] = max(rates_seen.get(family, 0.0), rate)
-                last_calls[:] = [now, calls]
-            elif not last_calls:
-                last_calls[:] = [now, calls]
-            over = {f: v for f, v in [*ceilings.items(), *rates_seen.items()]
-                    if v > SHARD_BUDGET_QPS * 1.001}
-            if over:
-                raise PhaseError(
-                    f"autoscale {name}: AIMD ceiling sums {ceilings} or call rates {rates_seen} "
-                    f"exceed {SHARD_BUDGET_QPS}/s per service"
-                )
-            return views
+            def read() -> dict[int, dict] | None:
+                """One read of the ring lease and every replica (the
+                budget held); the epoch bounds are held here."""
+                nonlocal target_max
+                try:
+                    epoch = pkg.sharding.ring_status(fleet.server.cluster)["epoch"]
+                except RuntimeError:
+                    return None  # no replica has created the ring lease yet
+                epochs.setdefault(epoch, time.monotonic())
+                if (observe_only and epoch != 0) or epoch > 2:
+                    raise PhaseError(f"autoscale {name}: ring epoch {epoch} (epochs seen {sorted(epochs)})")
+                views = fleet.read()
+                if views is None or any("owned" not in v["sharding"] for v in views.values()):
+                    return None  # a replica serves /healthz before its membership exists
+                for view in views.values():
+                    targets = metric_samples(view["metrics"], "agac_autoscaler_target_shards")
+                    target_max = max(target_max, *targets.values(), 0.0)
+                return views
 
-        def stable(views: list[dict], count: int, epoch: int) -> bool:
-            want = ("stable", f"{count}x64", 0, epoch)
-            for view in views:
-                resize = view["sharding"]["resize"]
-                if (resize["state"], resize["ring"], resize["handoff_pending"], resize["epoch"]) != want:
+            def stable(views: dict[int, dict], count: int, epoch: int) -> bool:
+                want = ("stable", f"{count}x64", 0, epoch)
+                for view in views.values():
+                    resize = view["sharding"]["resize"]
+                    if (resize["state"], resize["ring"], resize["handoff_pending"], resize["epoch"]) != want:
+                        return False
+                owned = [set(view["sharding"]["owned"]) for view in views.values()]
+                if set().union(*owned) != set(range(count)):
                     return False
-            owned = [set(view["sharding"]["owned"]) for view in views]
-            if set().union(*owned) != set(range(count)):
-                return False
-            if sum(map(len, owned)) != count:
-                raise PhaseError(f"autoscale {name}: replicas hold overlapping sets {owned}")
-            return True
+                if sum(map(len, owned)) != count:
+                    raise PhaseError(f"autoscale {name}: replicas hold overlapping sets {owned}")
+                return True
 
-        def held() -> bool:
-            views = read()
-            return views is not None and stable(views, AUTOSCALE_FROM, 0)
+            def decisions(port: int) -> list[dict]:
+                return _get_json(f"http://127.0.0.1:{port}/debug/autoscaler")["decisions"]
 
-        _wait_for("shard leases {0, 1} held", held, children, spawned)
-        lease_s = time.monotonic() - spawned
-        client = pkg.rest.RestClusterClient(server.url)
-        aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
+            fleet.wait("shard leases {0, 1} held",
+                       lambda: (views := read()) is not None and stable(views, AUTOSCALE_FROM, 0), spawned)
+            with StateWatch("duplicate", env["AGAC_FAKE_STATE"], duplicate_view, workdir,
+                            shared={"sent": ("i", 0)}) as watch:
+                def create(part: list) -> None:
+                    fleet.create("Service", part, before=lambda: watch.add("sent"))
 
-        def chains() -> tuple:
-            counts = aws.chain_counts()
-            if max(counts) > n:
-                raise PhaseError(f"autoscale {name}: chain counts {counts} exceed {n}: duplicates")
-            return counts
+                base_at = time.monotonic()
+                create(services[:n_base])
+                fleet.wait(f"{n_base} baseline chains", lambda: fleet.chains() == (n_base,) * 3, base_at)
+                pids = [child.popen.pid for child in fleet.children]
+                cpu = -sum(map(cpu_seconds, pids))
 
-        def decisions(port: int) -> list[dict]:
-            return _get_json(f"http://127.0.0.1:{port}/debug/autoscaler")["decisions"]
+                # the wave, and the run with no operator action
+                wave_at = time.monotonic()
+                creator = threading.Thread(target=create, args=(services[n_base:],), name="creator")
+                creator.start()
 
-        with DuplicateWatch(package, state_path, workdir) as watch:
-            def create(i: int) -> None:
-                watch.sending()
-                client.create("Service", make_shard_service(pkg, i))
+                def step() -> bool:
+                    """One read of the run; true at its end."""
+                    nonlocal scale_out, drained_at, calm_since, settle_s, end_at
+                    now = time.monotonic()
+                    views = read()
+                    counts = fleet.chains()
+                    if views is None:
+                        return False
+                    epoch = max(epochs)
+                    if drained_at is None and counts == (n, n, n) and not creator.is_alive():
+                        drained_at = now
+                    if not observe_only:
+                        if 1 not in epochs and now - wave_at > AUTOSCALE_REACTION_BOUND:
+                            raise PhaseError(
+                                f"autoscale: no scale-out within {AUTOSCALE_REACTION_BOUND} s of the wave"
+                            )
+                        if 1 in epochs and scale_out is None:
+                            scale_out = next((
+                                {"replica": replica, **d}
+                                for replica, port in enumerate(fleet.ports) for d in decisions(port)
+                                if d["executed"] and d["action"] == "scale-out"
+                                and d["target_shards"] == AUTOSCALE_TO
+                                and d["current_shards"] == AUTOSCALE_FROM
+                            ), None)
+                            if scale_out is None and now - epochs[1] > 6 * AUTOSCALE_INTERVAL:
+                                raise PhaseError("autoscale: ring epoch 1 without an executed scale-out")
+                            if scale_out is not None and scale_out["reason"] not in ("age-growth", "burn"):
+                                raise PhaseError(f"autoscale: scale-out for reason {scale_out['reason']}")
+                        if 2 in epochs and not (
+                            1 in stable_at and epochs[2] - epochs[1] >= AUTOSCALE_COOLDOWN_IN
+                            and epochs[2] > stable_at[1]
+                        ):
+                            raise PhaseError(
+                                f"autoscale: epoch 2 {epochs[2] - epochs.get(1, wave_at)} s after "
+                                f"epoch 1 (cooldown-in {AUTOSCALE_COOLDOWN_IN} s), epoch 1 stable "
+                                f"everywhere {'at ' + str(stable_at[1] - epochs[1]) if 1 in stable_at else 'never'}"
+                            )
+                    ring_stable = stable(views, AUTOSCALE_TO if epoch == 1 else AUTOSCALE_FROM, epoch)
+                    if ring_stable and epoch not in stable_at:
+                        stable_at[epoch] = now
+                    # the fault-1 bound: from the first read at which the last
+                    # chain is complete and the ring stable, every replica's
+                    # journeys in flight reach 0 within AUTOSCALE_SETTLE_S
+                    if settle_s is None and drained_at is not None and ring_stable:
+                        calm_since = calm_since or now
+                        journeys = [replica_journeys(v["metrics"]) for v in views.values()]
+                        if all(j == (0, 0.0) for j in journeys):
+                            settle_s = now - calm_since
+                        elif now - calm_since > AUTOSCALE_SETTLE_S:
+                            raise PhaseError(
+                                f"autoscale {name}: journeys in flight (count, oldest age s) per "
+                                f"replica {journeys} {now - calm_since} s after the last chain "
+                                f"completed with the ring stable"
+                            )
+                    elif settle_s is None:
+                        calm_since = None
+                    if observe_only:
+                        end_at = now
+                    elif 2 in stable_at:
+                        end_at = stable_at[2] + AUTOSCALE_TAIL_S
+                    elif 2 not in epochs and 1 in epochs:
+                        end_at = epochs[1] + AUTOSCALE_HOLD_S
+                    return end_at is not None and now >= end_at and settle_s is not None
 
-            def create_all(indices) -> None:
-                with concurrent.futures.ThreadPoolExecutor(max_workers=RESIZE_BATCH) as pool:
-                    list(pool.map(create, indices))
-
-            base_at = time.monotonic()
-            create_all(range(n_base))
-            _wait_for(f"{n_base} baseline chains", lambda: chains() == (n_base,) * 3, children, base_at)
-            base_s = time.monotonic() - base_at
-            pids = {r: child.popen.pid for r, child in enumerate(children)}
-            cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
-            own = os.times()
-
-            # the wave, and the run with no operator action
-            wave_at = time.monotonic()
-            creator = threading.Thread(target=create_all, args=(range(n_base, n),), name="creator")
-            creator.start()
-            scale_out = None
-            stable_at: dict[int, float] = {}
-            drained_at = None
-            calm_since = settle_s = None
-            end_at = None
-            while True:
-                for child in children:
-                    child.check_alive()
-                now = time.monotonic()
-                if now - wave_at > PROCESS_DEADLINE:
+                fleet.wait("end of the wave's run", step, wave_at, every=AUTOSCALE_READ)
+                elapsed = time.monotonic() - wave_at
+                cpu += sum(map(cpu_seconds, pids))
+                fleet.wait("Service left unconverged", fleet.explained(
+                    f"default/{svc.metadata.name}" for svc in services
+                ), time.monotonic())
+                # and every replica ends with no journey in flight (after a
+                # scale-in the adopters' resync runs on past the tail)
+                scrapes = fleet.idle()
+                histories = [decisions(port) for port in fleet.ports]
+                time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
+            watch.check()
+            if fleet.chains() != (n, n, n):
+                raise PhaseError(f"autoscale {name}: chain counts {fleet.chains()} at the end")
+            creates = family_sums(s["ops"] for s in scrapes.values()).get("create_accelerator", 0.0)
+            if creates != n:
+                raise PhaseError(f"autoscale {name}: {creates} create_accelerator calls for {n} Services")
+            if observe_only:
+                suppressed = [
+                    (r, d) for r, history in enumerate(histories) for d in history
+                    if d["action"] == "scale-out" and "observe-only" in d["rails"]
+                ]
+                if not suppressed or target_max != AUTOSCALE_TO:
                     raise PhaseError(
-                        f"autoscale {name}: no end within {PROCESS_DEADLINE} s of the wave "
-                        f"(epochs {sorted(epochs)}, chains {chains()})"
+                        f"autoscale observe-only: {len(suppressed)} scale-outs held by observe-only, "
+                        f"target-shards gauge at most {target_max}"
                     )
-                views = read()
-                counts = chains()
-                if views is None:
-                    time.sleep(AUTOSCALE_READ)
-                    continue
-                epoch = max(epochs)
-                if drained_at is None and counts == (n, n, n) and not creator.is_alive():
-                    drained_at = now
-                if not observe_only:
-                    if 1 not in epochs and now - wave_at > AUTOSCALE_REACTION_BOUND:
-                        raise PhaseError(
-                            f"autoscale: no scale-out within {AUTOSCALE_REACTION_BOUND} s of the wave"
-                        )
-                    if 1 in epochs and scale_out is None:
-                        for replica, port in enumerate(ports):
-                            for d in decisions(port):
-                                if (d["executed"] and d["action"] == "scale-out"
-                                        and d["target_shards"] == AUTOSCALE_TO
-                                        and d["current_shards"] == AUTOSCALE_FROM):
-                                    scale_out = {"replica": replica, **d}
-                                    break
-                            if scale_out is not None:
-                                break
-                        if scale_out is None and now - epochs[1] > 6 * AUTOSCALE_INTERVAL:
-                            raise PhaseError("autoscale: ring epoch 1 without an executed scale-out")
-                        if scale_out is not None and scale_out["reason"] not in ("age-growth", "burn"):
-                            raise PhaseError(f"autoscale: scale-out for reason {scale_out['reason']}")
-                    if 2 in epochs and not (
-                        1 in stable_at and epochs[2] - epochs[1] >= AUTOSCALE_COOLDOWN_IN
-                        and epochs[2] > stable_at[1]
-                    ):
-                        raise PhaseError(
-                            f"autoscale: epoch 2 {epochs[2] - epochs.get(1, wave_at)} s after "
-                            f"epoch 1 (cooldown-in {AUTOSCALE_COOLDOWN_IN} s), epoch 1 stable "
-                            f"everywhere {'at ' + str(stable_at[1] - epochs[1]) if 1 in stable_at else 'never'}"
-                        )
-                count = AUTOSCALE_TO if epoch == 1 else AUTOSCALE_FROM
-                ring_stable = stable(views, count, epoch)
-                if ring_stable and epoch not in stable_at:
-                    stable_at[epoch] = now
-                # the fault-1 bound: from the first read at which the last
-                # chain is complete and the ring stable, every replica's
-                # journeys in flight reach 0 within AUTOSCALE_SETTLE_S
-                if settle_s is None and drained_at is not None and ring_stable:
-                    calm_since = calm_since or now
-                    journeys = [replica_journeys(v["metrics"]) for v in views]
-                    if all(j == (0, 0.0) for j in journeys):
-                        settle_s = now - calm_since
-                    elif now - calm_since > AUTOSCALE_SETTLE_S:
-                        raise PhaseError(
-                            f"autoscale {name}: journeys in flight (count, oldest age s) per "
-                            f"replica {journeys} {now - calm_since} s after the last chain "
-                            f"completed with the ring stable"
-                        )
-                elif settle_s is None:
-                    calm_since = None
-                if observe_only:
-                    end_at = now
-                elif 2 in stable_at:
-                    end_at = stable_at[2] + AUTOSCALE_TAIL_S
-                elif 2 not in epochs and 1 in epochs:
-                    end_at = epochs[1] + AUTOSCALE_HOLD_S
-                if end_at is not None and now >= end_at and settle_s is not None:
-                    break
-                time.sleep(AUTOSCALE_READ)
-            elapsed = time.monotonic() - wave_at
-            for r, pid in pids.items():
-                cpu[r] += cpu_seconds(pid)
-            own_cpu = sum(os.times()[:2]) - sum(own[:2])
-
-            pending = {f"default/{make_shard_service(pkg, i).metadata.name}" for i in range(n)}
-
-            def converged() -> bool:
-                for key in sorted(pending):
-                    for port in ports:
-                        answer = json.loads(_http(f"http://127.0.0.1:{port}/debug/explain?key={key}"))
-                        if answer["verdict"] == "converged":
-                            pending.discard(key)
-                            break
-                return not pending
-
-            _wait_for("every Service converged on its owner", converged, children, time.monotonic())
-
-            def idle() -> list[dict] | None:
-                # and every replica ends with no journey in flight (after
-                # a scale-in the adopters' resync runs on past the tail)
-                scrapes = [scrape_replica(port) for port in ports]
-                journeys = [replica_journeys(s["metrics"]) for s in scrapes]
-                return scrapes if all(j == (0, 0.0) for j in journeys) else None
-
-            scrapes = _wait_for("no journey in flight on any replica", idle, children, time.monotonic())
-            histories = [decisions(port) for port in ports]
-            time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
-        watch.check()
-        final = aws.chain_counts()
-        if final != (n, n, n):
-            raise PhaseError(f"autoscale {name}: chain counts {final} at the end")
-        creates = sum(s["ops"].get("create_accelerator", 0.0) for s in scrapes)
-        if creates != n:
-            raise PhaseError(f"autoscale {name}: {creates} create_accelerator calls for {n} Services")
-        if observe_only:
-            suppressed = [
-                (r, d) for r, history in enumerate(histories) for d in history
-                if d["action"] == "scale-out" and "observe-only" in d["rails"]
-            ]
-            if not suppressed or target_seen["max"] != AUTOSCALE_TO:
-                raise PhaseError(
-                    f"autoscale observe-only: {len(suppressed)} scale-outs held by observe-only, "
-                    f"target-shards gauge at most {target_seen['max']}"
-                )
-        exits = {child.name: child.terminate() for child in children}
+            exits = fleet.terminate()
     finally:
         ring_stop.set()
-        for child in children:
-            child.kill()
-        server.stop()
-        ring_watch.join(JOIN_TIMEOUT)
-    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
-    if set(exits.values()) != {0} or tracebacks:
-        raise PhaseError(f"autoscale {name}: exit statuses {exits}, tracebacks from {tracebacks}")
+        if ring_watch is not None:
+            ring_watch.join(JOIN_TIMEOUT)
     per_replica = []
-    for scrape, history in zip(scrapes, histories):
+    for r, history in enumerate(histories):
         tally: dict[str, int] = {}
         rails: dict[str, int] = {}
         for d in history:
@@ -2343,7 +2155,7 @@ def autoscale_fleet(
             for rail in d["rails"]:
                 rails[rail] = rails.get(rail, 0) + 1
         per_replica.append({
-            "owned": scrape["sharding"]["owned"],
+            "owned": scrapes[r]["sharding"]["owned"],
             "decisions": tally,
             "suppressed": rails,
             "executed": [
@@ -2359,20 +2171,11 @@ def autoscale_fleet(
                 if d["executed"] and d["action"] == "scale-in":
                     scale_in.update({"replica": replica, "reason": d["reason"],
                                      "evidence": d["evidence"]})
-    mutating = pkg.fake_backend._MUTATING_PREFIXES
-    ops = {}
-    for scrape in scrapes:
-        for op, count in scrape["ops"].items():
-            ops[op] = ops.get(op, 0.0) + count
-    mutations = sum(count for op, count in ops.items() if op.startswith(mutating))
-    flock_op_s = flock_op_seconds(pkg, state_path)
     evidence = scale_out["evidence"] if scale_out is not None else {}
     return {
         "run": name,
         "services": {"base": n_base, "wave": n_wave},
         "latency_s": latency,
-        "lease_s": lease_s,
-        "base_s": base_s,
         "epochs_s": {str(e): t - wave_at for e, t in sorted(epochs.items())},
         "stable_s": {str(e): t - wave_at for e, t in sorted(stable_at.items())},
         "scale_out": None if scale_out is None else {
@@ -2387,17 +2190,13 @@ def autoscale_fleet(
         "drain_s": drained_at - wave_at,
         "settle_s": settle_s,
         "create_accelerator": int(creates),
-        "journeys": journey_counts(pkg, [s["metrics"] for s in scrapes]),
+        "journeys": journey_counts(pkg, [s["metrics"] for s in scrapes.values()]),
         "replicas": per_replica,
-        "target_shards_max": target_seen["max"],
-        "aimd_ceiling_sums_max": dict(sorted(ceilings_seen.items())),
-        "call_rates_max": dict(sorted(rates_seen.items())),
-        "mutations": int(mutations),
-        "flock_busy_share": mutations * flock_op_s / elapsed,
-        "watch": {"polls": watch.polls, "max_gap_s": watch.max_gap_s},
-        "elapsed_s": elapsed,
-        "replica_cores_busy": sum(cpu.values()) / elapsed,
-        "this_process_cores_busy": own_cpu / elapsed,
+        "target_shards_max": target_max,
+        "aimd_ceiling_sums_max": dict(sorted(fleet.budget.ceilings_max.items())),
+        "call_rates_max": dict(sorted(fleet.budget.rates_max.items())),
+        "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"]},
+        "replica_cores_busy": cpu / elapsed,
         "exits": exits,
     }
 
@@ -2407,10 +2206,11 @@ def autoscale_runs(
 ) -> dict:
     """``autoscale_fleet``'s acting run and its observe-only twin side by
     side, the twin ``AUTOSCALE_TWIN_DELAY`` s behind, each on its own
-    apiserver, account and ports (any failure of either is raised).  Beside the runs, the cores that this process and
-    its children keep busy, read every ``AUTOSCALE_BUSY_READ`` s: the two
-    runs share the host, and more than half its cores busy would make
-    them measure each other."""
+    apiserver, account and ports (any failure of either is raised).
+    Beside the runs, the most cores that this process and its children
+    kept busy over ``AUTOSCALE_BUSY_READ`` s: the two runs share the
+    host, and more than half its cores busy would make them measure
+    each other."""
     def run(observe_only: bool) -> dict:
         rundir = workdir / ("observe-only" if observe_only else "acting")
         rundir.mkdir(parents=True, exist_ok=True)
@@ -2437,12 +2237,7 @@ def autoscale_runs(
     finally:
         done.set()
         sampler.join(JOIN_TIMEOUT)
-    return {
-        **runs,
-        "busy_cores_max": max(busy, default=0.0),
-        "busy_cores_mean": sum(busy) / len(busy) if busy else 0.0,
-        "busy_cores": busy,
-    }
+    return {**runs, "busy_cores_max": max(busy, default=0.0)}
 
 
 # ---------------------------------------------------------------------------
@@ -2472,31 +2267,49 @@ def make_teardown_service(pkg, i: int, every: int):
     return svc
 
 
-def teardown_view(data: dict, kept: dict, doomed: set, kept_hosts: set, doomed_hosts: set) -> dict:
-    """One read of the fake account's state file (``data``, as saved):
-    the faults against the kept Services (``kept``: owner tag -> ARN;
-    ``kept_hosts``: record names), and what the deleted owners
-    (``doomed`` owner tags, ``doomed_hosts``) still hold."""
-    owner_of = {}
-    accels = {}
-    for entry in data.get("accelerators", []):
-        arn = entry["accelerator"]["accelerator_arn"]
-        accels[arn] = entry
-        owner_of[arn] = dict(map(tuple, entry["tags"])).get("aws-global-accelerator-owner")
+def teardown_view(data: dict, plan: dict, kept: dict, shared: dict, began: float, now: float) -> list[str]:
+    """``StateWatch``'s teardown check over ``plan`` (``kept``: owner tag
+    -> ARN of each kept Service, ``kept_hosts``: their record names;
+    ``doomed``, ``doomed_hosts``: the deleted Services'): a kept
+    Service's accelerator gone or disabled or its records missing, and a
+    second disable of one accelerator (a start of ``IN_PROGRESS`` on it
+    disabled, after it was enabled or settled or had fewer reads
+    pending).  Publishes in ``shared`` what the deleted owners still
+    hold: their accelerators disabled (``disabled``) and gone
+    (``gone``), the resources left (``left``: accelerators, listeners,
+    endpoint groups, records) and the first read with none left
+    (``cleared_at``); keeps the disables started per ARN (``starts``)
+    and the deleted owners' accelerators disabled at the first read
+    begun after ``shared["killed_at"]`` (``disabled_at_kill``)."""
+    doomed, doomed_hosts = set(plan["doomed"]), set(plan["doomed_hosts"])
+    accels = {entry["accelerator"]["accelerator_arn"]: entry for entry in data.get("accelerators", [])}
+    owner_of = {arn: owner_tag(entry) for arn, entry in accels.items()}
     records = {
         (r["name"], r["type"]) for table in data.get("records", {}).values() for r in table
     }
     faults = []
-    for owner, arn in kept.items():
+    for owner, arn in plan["kept"].items():
         entry = accels.get(arn)
         if entry is None or owner_of[arn] != owner:
             faults.append(f"kept {owner}'s accelerator {arn} is gone")
         elif not entry["accelerator"]["enabled"]:
             faults.append(f"kept {owner}'s accelerator {arn} is disabled")
-    for host in sorted(kept_hosts):
+    for host in plan["kept_hosts"]:
         missing = [t for t in ("TXT", "A") if (host, t) not in records]
         if missing:
             faults.append(f"kept hostname {host} lacks {missing}")
+    starts, last = kept.setdefault("starts", {}), kept.setdefault("settle", {})
+    for arn, entry in accels.items():
+        enabled, status = entry["accelerator"]["enabled"], entry["accelerator"]["status"]
+        pending = entry.get("pending_describes", 0)
+        before = last.get(arn)
+        if not enabled and status == "IN_PROGRESS" and (
+            before is None or before[0] or before[1] != "IN_PROGRESS" or pending > before[2]
+        ):
+            starts[arn] = starts.get(arn, 0) + 1
+            if starts[arn] > 1:
+                faults.append(f"accelerator {arn} disabled {starts[arn]} times")
+        last[arn] = (enabled, status, pending)
     doomed_arns = {arn for arn, owner in owner_of.items() if owner in doomed}
     listener_of = {
         listener["listener_arn"]: arn
@@ -2505,140 +2318,17 @@ def teardown_view(data: dict, kept: dict, doomed: set, kept_hosts: set, doomed_h
     groups = sum(1 for eg in data.get("endpoint_groups", []) if eg["parent"] in listener_of)
     host_records = sum(1 for name, _ in records if name in doomed_hosts)
     disabled = sorted(arn for arn in doomed_arns if not accels[arn]["accelerator"]["enabled"])
-    return {
-        "faults": faults,
-        "settle": {
-            arn: (e["accelerator"]["enabled"], e["accelerator"]["status"], e.get("pending_describes", 0))
-            for arn, e in accels.items()
-        },
-        "doomed_accelerators": len(doomed_arns),
-        "disabled": disabled,
-        "left": len(doomed_arns) + len(listener_of) + groups + host_records,
-    }
-
-
-def _watch_teardown(
-    state_path: str, plan: str, shared: dict, stop, ready, out_path: str
-) -> None:
-    """``TeardownWatch``'s loop, in a process of its own: read the state
-    file every ``RESIZE_POLL`` s until ``stop``; publish what the deleted
-    owners hold in ``shared``; then write the faults, the disables seen
-    (each start of ``IN_PROGRESS`` on a disabled accelerator, per ARN),
-    the read count and the longest gap between reads to ``out_path``."""
-    plan = json.loads(plan)
-    kept, doomed = plan["kept"], set(plan["doomed"])
-    kept_hosts, doomed_hosts = set(plan["kept_hosts"]), set(plan["doomed_hosts"])
-    faults: list[str] = []
-    starts: dict[str, int] = {}
-    last: dict[str, tuple] = {}
-    disabled_at_kill = None
-    polls, max_gap, previous = 0, 0.0, None
-    while True:
-        began = time.monotonic()
-        with open(state_path) as f:
-            view = teardown_view(json.load(f), kept, doomed, kept_hosts, doomed_hosts)
-        now = time.monotonic()
-        if previous is not None:
-            max_gap = max(max_gap, now - previous)
-        previous, polls = now, polls + 1
-        for fault in view["faults"]:
-            if len(faults) < 20:
-                faults.append(f"read {polls}: {fault}")
-        for arn, (enabled, status, pending) in view["settle"].items():
-            before = last.get(arn)
-            if not enabled and status == "IN_PROGRESS" and (
-                before is None or before[0] or before[1] != "IN_PROGRESS" or pending > before[2]
-            ):
-                starts[arn] = starts.get(arn, 0) + 1
-            last[arn] = (enabled, status, pending)
-        with shared["lock"]:
-            shared["disabled"].value = len(view["disabled"])
-            shared["gone"].value = len(doomed) - view["doomed_accelerators"]
-            shared["left"].value = view["left"]
-            if view["left"] == 0 and shared["cleared_at"].value == 0.0:
-                shared["cleared_at"].value = now
-            killed_at = shared["killed_at"].value
-        if disabled_at_kill is None and killed_at and began > killed_at:
-            disabled_at_kill = view["disabled"]
-        ready.set()
-        if stop.wait(RESIZE_POLL):
-            break
-    pathlib.Path(out_path).write_text(json.dumps({
-        "faults": faults, "starts": starts, "disabled_at_kill": disabled_at_kill,
-        "polls": polls, "max_gap_s": max_gap,
-    }))
-
-
-class TeardownWatch:
-    """Reads the shared account's state file every ``RESIZE_POLL`` s for
-    the whole teardown, in a process of its own (as ``DuplicateWatch``).
-    ``disabled``, ``gone`` and ``left`` are the latest read's deleted
-    owners' disabled accelerators, accelerators gone and resources
-    left (accelerators, listeners, endpoint groups, records);
-    ``cleared_at`` the first read (monotonic s) with none left.
-    ``check`` raises a fault against the kept Services seen at any
-    read, a second disable of an accelerator, or a gap between reads
-    over ``RESIZE_POLL_BOUND``."""
-
-    def __init__(self, state_path: str, plan: dict, workdir: pathlib.Path):
-        context = multiprocessing.get_context("spawn")
-        self._shared = {
-            "lock": context.Lock(),
-            "disabled": context.Value("i", 0, lock=False),
-            "gone": context.Value("i", 0, lock=False),
-            "left": context.Value("i", -1, lock=False),
-            "cleared_at": context.Value("d", 0.0, lock=False),
-            "killed_at": context.Value("d", 0.0, lock=False),
-        }
-        self._stop, self._ready = context.Event(), context.Event()
-        self._out = workdir / "teardown-watch.json"
-        self._process = context.Process(
-            target=_watch_teardown, name="teardown-watch", daemon=True,
-            args=(state_path, json.dumps(plan), self._shared, self._stop, self._ready,
-                  str(self._out)),
-        )
-        self.result: dict = {}
-
-    def read(self) -> dict:
-        with self._shared["lock"]:
-            return {k: v.value for k, v in self._shared.items() if k != "lock"}
-
-    def killed(self, at: float) -> None:
-        """Mark the kill (monotonic s, after the victim is reaped): the
-        first read that starts after it records the disabled accelerators."""
-        with self._shared["lock"]:
-            self._shared["killed_at"].value = at
-
-    def __enter__(self) -> "TeardownWatch":
-        self._process.start()
-        if not self._ready.wait(PROCESS_DEADLINE):
-            self._process.kill()
-            raise PhaseError("the teardown watch never read the state file")
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._stop.set()
-        self._process.join(JOIN_TIMEOUT)
-        if self._process.is_alive():
-            self._process.kill()
-            self._process.join(JOIN_TIMEOUT)
-        if self._out.exists():
-            self.result = json.loads(self._out.read_text())
-
-    def check(self) -> None:
-        result = self.result
-        if self._process.exitcode != 0 or not result.get("polls"):
-            raise PhaseError(f"the teardown watch exited {self._process.exitcode}")
-        if result["faults"]:
-            raise PhaseError(f"teardown: false positives {result['faults']}")
-        twice = {arn: n for arn, n in result["starts"].items() if n > 1}
-        if twice:
-            raise PhaseError(f"teardown: accelerators disabled more than once {twice}")
-        if result["max_gap_s"] > RESIZE_POLL_BOUND:
-            raise PhaseError(
-                f"the teardown watch went {result['max_gap_s']} s between reads "
-                f"(bound {RESIZE_POLL_BOUND} s)"
-            )
+    left = len(doomed_arns) + len(listener_of) + groups + host_records
+    with shared["lock"]:
+        shared["disabled"].value = len(disabled)
+        shared["gone"].value = len(doomed) - len(doomed_arns)
+        shared["left"].value = left
+        if left == 0 and shared["cleared_at"].value == 0.0:
+            shared["cleared_at"].value = now
+        killed_at = shared["killed_at"].value
+    if "disabled_at_kill" not in kept and killed_at and began > killed_at:
+        kept["disabled_at_kill"] = disabled
+    return faults
 
 
 DISABLE_LINE = re.compile(r"Disabling Global Accelerator (\S+)")
@@ -2666,32 +2356,34 @@ def teardown_fleet(
     (a) Once each replica holds one shard, ``n`` Services on one NLB are
     created (hostnames per ``teardown_hostname``) and converge: ``n``
     complete chains and every TXT+A pair.  (b) The even-numbered half
-    is deleted in one burst while ``TeardownWatch`` reads the account
-    every 0.1 s.  (c) Once a deleted owner's accelerator is disabled
-    and not yet deleted, with at most ``TEARDOWN_KILL_GONE`` of them
-    gone, the holder of shard ``victim_shard`` gets SIGKILL.  (d) The survivor steals
-    its lease one lease duration later; the delete events of the dead
-    replica's keys died with it, so its sweeper must find those orphans
-    from ownership tags and TXT heritage alone.
+    is deleted in one burst while a ``StateWatch`` (``teardown_view``)
+    reads the account every 0.1 s.  (c) Once a deleted owner's
+    accelerator is disabled and not yet deleted, with at most
+    ``TEARDOWN_KILL_GONE`` of them gone, the holder of shard
+    ``victim_shard`` gets SIGKILL.  (d) The survivor steals its lease one
+    lease duration later; the delete events of the dead replica's keys
+    died with it, so its sweeper must find those orphans from ownership
+    tags and TXT heritage alone.
 
-    Hard bounds (``PhaseError``): at the end exactly the kept half's
-    accelerators remain, each with its ARN from before the deletes and
-    a complete chain, every kept hostname keeps its TXT and A and no
-    deleted owner keeps an accelerator, listener, endpoint group or
-    record; at every watch read every kept Service's accelerator is
-    there, enabled, with its records; orphans of the dead replica's
-    shards were left at the kill, and the survivor's ``/healthz`` gc
-    block counts at least that many deletions; no sweep deletes more
-    than ``--gc-max-deletes``; the last orphan is gone within
-    ``takeover + (grace - 1 + ceil(K / max_deletes) + 1) x interval + 2
-    x settle + TEARDOWN_SLACK_S`` s of the kill (K: orphans left at the
-    steal); no accelerator is disabled twice, neither in the watch's
-    reads nor in the replicas' logs; the fleet's call rate and summed
-    AIMD ceilings within ``SHARD_BUDGET_QPS`` per service at every
-    read; every kept Service ``converged`` on the survivor's
-    ``/debug/explain`` and no journey in flight there within
-    ``AUTOSCALE_SETTLE_S`` s of calm; the survivor exits 0 on SIGTERM.
-    Returns the run's times, counters and final AWS state."""
+    Hard bounds (``PhaseError``): never more than ``n`` complete chains;
+    at the end exactly the kept half's accelerators remain, each with
+    its ARN from before the deletes and a complete chain, every kept
+    hostname keeps its TXT and A and no deleted owner keeps an
+    accelerator, listener, endpoint group or record; at every watch read
+    every kept Service's accelerator is there, enabled, with its
+    records; orphans of the dead replica's shards were left at the
+    kill, and the survivor's ``/healthz`` gc block counts at least that
+    many deletions; no sweep deletes more than ``--gc-max-deletes``; the
+    last orphan is gone within ``takeover + (grace - 1 + ceil(K /
+    max_deletes) + 1) x interval + 2 x settle + TEARDOWN_SLACK_S`` s of
+    the kill (K: orphans left at the steal); no accelerator is disabled
+    twice, neither in the watch's reads nor in the replicas' logs; the
+    fleet's call rate and summed AIMD ceilings within
+    ``SHARD_BUDGET_QPS`` per service at every read; every kept Service
+    ``converged`` on the survivor's ``/debug/explain`` and no journey in
+    flight there within ``AUTOSCALE_SETTLE_S`` s; the survivor exits 0
+    on SIGTERM.  Returns the run's kill, mop-up time and bound,
+    counters and final AWS state."""
     env = shard_env(n, latency, workdir)
     lbs = [SHARD_LB] + [service_lb(i) for i in range(n) if teardown_hostname(i, hostname_every)]
     env.update(
@@ -2699,7 +2391,6 @@ def teardown_fleet(
         AGAC_FAKE_ZONES=TEARDOWN_ZONE,
         AGAC_FAKE_SETTLE=str(TEARDOWN_SETTLE),
     )
-    state_path = env["AGAC_FAKE_STATE"]
     gc = TEARDOWN_GC
     placement = [
         "--shards-per-replica", "2", "--gc-interval", f"{gc['interval']:g}",
@@ -2707,35 +2398,18 @@ def teardown_fleet(
     ]
     shards = {0, 1}
     names = [make_shard_service(pkg, i).metadata.name for i in range(n)]
-    owner_tag = {i: f"service/default/{name}" for i, name in enumerate(names)}
+    owner_of = {i: f"service/default/{name}" for i, name in enumerate(names)}
     doomed_i = [i for i in range(n) if i % 2 == 0]
     kept_i = [i for i in range(n) if i % 2 == 1]
     hosts = {i: f"{h}." for i in range(n) if (h := teardown_hostname(i, hostname_every))}
     ring = pkg.ring.HashRing(2)
     shard_of = {i: ring.shard_for_key(f"default/{names[i]}") for i in range(n)}
-    server = pkg.testserver.TestApiServer().start()
-    children: list[Child] = []
-    live = [0, 1]
-    budget = BudgetWatch("teardown")
-    sweeps: dict[int, dict[int, dict]] = {0: {}, 1: {}}
-    try:
-        kubeconfig = write_kubeconfig(workdir, server.url)
-        ports = [_free_port() for _ in live]
-        spawned = time.monotonic()
-        for replica, port in enumerate(ports):
-            children.append(Child(
-                f"controller-{replica}",
-                shard_controller_argv(package, kubeconfig, port, 2, placement), env, workdir,
-            ))
-
-        def running() -> list[Child]:
-            return [children[r] for r in live]
-
-        _wait_for("every shard lease held", lambda: shard_placement(ports, live, shards, False),
-                  running(), spawned)
-        lease_s = time.monotonic() - spawned
-        client = pkg.rest.RestClusterClient(server.url)
-        aws = pkg.fake_backend.FileBackedFakeAWSBackend(state_path)
+    with ProcessFleet(pkg, "teardown", workdir, env, chains=n) as fleet:
+        spawned = fleet.spawn(2, lambda port: shard_controller_argv(
+            package, fleet.kubeconfig, port, 2, placement
+        ))
+        fleet.wait("every shard lease held", lambda: fleet.placement(shards), spawned)
+        aws = fleet.aws
 
         def record_names() -> set:
             # the zone is seeded by the replicas' first use of the account
@@ -2743,41 +2417,28 @@ def teardown_fleet(
             return {(r.name, r.type) for r in aws.records_in_zone(zone_id)} if zone_id else set()
 
         start = time.monotonic()
-        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-            list(pool.map(
-                lambda i: client.create("Service", make_teardown_service(pkg, i, hostname_every)),
-                range(n),
-            ))
+        fleet.create("Service", [make_teardown_service(pkg, i, hostname_every) for i in range(n)])
 
         def converged() -> bool:
-            chains = aws.chain_counts()
-            if max(chains) > n:
-                raise PhaseError(f"teardown: chain counts {chains} exceed {n}: duplicates")
             have = record_names()
-            return chains == (n, n, n) and all(
+            return fleet.chains() == (n, n, n) and all(
                 (h, t) in have for h in hosts.values() for t in ("TXT", "A")
             )
 
-        _wait_for(f"{n} complete chains and {len(hosts)} TXT+A pairs", converged, running(), start)
-        converge_s = time.monotonic() - start
-        start_owned = _wait_for(
-            "one shard lease held by each replica",
-            lambda: shard_placement(ports, live, shards, True), running(), start,
+        fleet.wait(f"{n} complete chains and {len(hosts)} TXT+A pairs", converged, start)
+        start_owned = fleet.wait(
+            "one shard lease held by each replica", lambda: fleet.placement(shards, True), start
         )
         arn_of = {owner: arn for arn, owner in aws.accelerator_owners().items()}
-        if sorted(arn_of) != sorted(owner_tag.values()):
+        if sorted(arn_of) != sorted(owner_of.values()):
             raise PhaseError(f"teardown: accelerator owners {sorted(arn_of)} after converging")
         plan = {
-            "kept": {owner_tag[i]: arn_of[owner_tag[i]] for i in kept_i},
-            "doomed": [owner_tag[i] for i in doomed_i],
+            "kept": {owner_of[i]: arn_of[owner_of[i]] for i in kept_i},
+            "doomed": [owner_of[i] for i in doomed_i],
             "kept_hosts": sorted(hosts[i] for i in kept_i if i in hosts),
             "doomed_hosts": sorted(hosts[i] for i in doomed_i if i in hosts),
         }
-        doomed_arns = {arn_of[owner_tag[i]]: i for i in doomed_i}
-        pids = {r: child.popen.pid for r, child in enumerate(children)}
-        cpu = {r: -cpu_seconds(pid) for r, pid in pids.items()}
-        own = os.times()
-        base = {r: scrape_replica(ports[r]) for r in live}
+        doomed_arns = {arn_of[owner_of[i]]: i for i in doomed_i}
 
         def left_by_shard() -> dict[int, int]:
             """The deleted owners' accelerators and hostnames with a
@@ -2786,65 +2447,39 @@ def teardown_fleet(
             names_left = {name for name, _ in record_names()}
             out = {0: 0, 1: 0}
             for i in doomed_i:
-                out[shard_of[i]] += (owner_tag[i] in owners) + (hosts.get(i) in names_left)
+                out[shard_of[i]] += (owner_of[i] in owners) + (hosts.get(i) in names_left)
             return out
 
-        def read() -> dict[int, dict] | None:
-            """The live replicas as scraped; every read holds the
-            fleet's quota (``BudgetWatch``) and keeps each sweep's
-            report."""
-            try:
-                now = time.monotonic()
-                scrapes = {r: scrape_replica(ports[r]) for r in live}
-                gcs = {r: _get_json(f"http://127.0.0.1:{ports[r]}/healthz")["gc"] for r in live}
-            except OSError:
-                return None
-            budget.hold(scrapes, now)
-            for r in live:
-                for report in gcs[r].get("per_shard", {}).values():
-                    if "sweep" in report:
-                        sweeps[r].setdefault(report["sweep"], report)
-            return {r: {**scrapes[r], "gc": gcs[r]} for r in live}
-
-        read()
-        with TeardownWatch(state_path, plan, workdir) as watch:
+        fleet.wait("read of the replicas", fleet.read, start)  # the budget's window to the deletes
+        with StateWatch("teardown", env["AGAC_FAKE_STATE"], teardown_view, workdir, plan=plan, shared={
+            "disabled": ("i", 0), "gone": ("i", 0), "left": ("i", -1),
+            "cleared_at": ("d", 0.0), "killed_at": ("d", 0.0),
+        }) as watch:
             # (b) the burst of deletes
             deleted_at = time.monotonic()
             with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-                list(pool.map(lambda i: client.delete("Service", "default", names[i]), doomed_i))
-            burst_s = time.monotonic() - deleted_at
+                list(pool.map(lambda i: fleet.client.delete("Service", "default", names[i]), doomed_i))
+
             # (c) the kill, mid-teardown: the watch is polled alone here, so
             # the kill lands within a read of the first disable
-            while True:
-                for child in running():
-                    child.check_alive()
+            def disabled() -> dict | None:
                 seen = watch.read()
                 if seen["gone"] > TEARDOWN_KILL_GONE * len(doomed_i):
                     raise PhaseError(
                         f"teardown: {seen['gone']} of {len(doomed_i)} accelerators gone before "
                         f"one was seen disabled (watch {seen})"
                     )
-                if seen["disabled"] >= 1:
-                    break
-                if time.monotonic() - deleted_at > PROCESS_DEADLINE:
-                    raise PhaseError(f"teardown: no accelerator disabled (watch {seen})")
-                time.sleep(0.02)
-            owners = {r: _get_json(f"http://127.0.0.1:{ports[r]}/healthz")["sharding"]["owned"] for r in live}
-            (victim,) = [r for r in live if victim_shard in owners[r]]
-            victim_scrape = scrape_replica(ports[victim])
-            cpu[victim] += cpu_seconds(pids[victim])
-            children[victim].popen.send_signal(signal.SIGKILL)
-            children[victim].popen.wait(timeout=EXIT_DEADLINE)
-            killed_at = time.monotonic()
-            watch.killed(killed_at)
-            live.remove(victim)
-            (survivor,) = live
+                return seen if seen["disabled"] >= 1 else None
+
+            seen = fleet.wait("accelerator disabled", disabled, deleted_at, every=0.02)
+            victim, victim_shards = fleet.holder(victim_shard, shards)
+            fleet.kill(victim)
+            watch.set("killed_at", fleet.killed_at)
+            (survivor,) = fleet.live
             left = left_by_shard()
-            victim_shards = sorted(owners[victim])
             kill = {
                 "victim": victim,
                 "owned": victim_shards,
-                "at_s": killed_at - deleted_at,
                 "watch": seen,
                 "left_by_shard": left,
                 "victim_orphans": sum(left[s] for s in victim_shards),
@@ -2852,32 +2487,14 @@ def teardown_fleet(
             if not kill["victim_orphans"]:
                 raise PhaseError(f"teardown: no orphan of shards {victim_shards} at the kill: {kill}")
             # (d) the steal and the mop-up
-            while True:
-                for child in running():
-                    child.check_alive()
-                now = time.monotonic()
-                if now - killed_at > PROCESS_DEADLINE:
-                    raise PhaseError(f"teardown: orphans left {watch.read()} after {now - killed_at} s")
-                views = read()
-                seen = watch.read()
-                if "takeover_s" not in kill:
-                    if views is not None and set(views[survivor]["sharding"]["owned"]) == shards:
-                        kill["takeover_s"] = now - killed_at
-                        kill["orphans_at_steal"] = sum(left_by_shard().values())
-                        kill["sweeps_at_steal"] = views[survivor]["gc"]["sweeps_total"]
-                        steal_ops = dict(views[survivor]["ops"])
-                elif seen["cleared_at"]:
-                    break
-                time.sleep(TEARDOWN_READ)
-            cleared_at = watch.read()["cleared_at"]
-            mop_up_s = cleared_at - killed_at
-            views = _wait_for("a read of the survivor", read, running(), time.monotonic())
-            sweeps_to_mop = views[survivor]["gc"]["sweeps_total"] - kill["sweeps_at_steal"]
-            ops_to_mop = {
-                op: int(count - steal_ops.get(op, 0.0))
-                for op, count in sorted(views[survivor]["ops"].items())
-                if count > steal_ops.get(op, 0.0)
-            }
+            kill["takeover_s"] = fleet.takeover(lambda block: set(block.get("owned", ())) == shards)
+            kill["orphans_at_steal"] = sum(left_by_shard().values())
+            cleared_at = fleet.wait(
+                "orphan-free account",
+                lambda: fleet.read() is not None and watch.read()["cleared_at"],
+                fleet.killed_at, every=TEARDOWN_READ,
+            )
+            mop_up_s = cleared_at - fleet.killed_at
             bound_s = kill["takeover_s"] + (
                 gc["grace_sweeps"] - 1 + -(-kill["orphans_at_steal"] // gc["max_deletes"]) + 1
             ) * gc["interval"] + 2 * TEARDOWN_SETTLE + TEARDOWN_SLACK_S
@@ -2886,41 +2503,19 @@ def teardown_fleet(
                     f"teardown: the last orphan went {mop_up_s} s after the kill (bound {bound_s} s: "
                     f"takeover {kill['takeover_s']} s, {kill['orphans_at_steal']} orphans at the steal)"
                 )
-            pending = {f"default/{names[i]}" for i in kept_i}
-
-            def explained() -> bool:
-                for key in sorted(pending):
-                    answer = json.loads(_http(f"http://127.0.0.1:{ports[survivor]}/debug/explain?key={key}"))
-                    if answer["verdict"] == "converged":
-                        pending.discard(key)
-                return not pending
-
-            _wait_for("every kept Service converged on the survivor", explained, running(), cleared_at)
+            fleet.wait("kept Service left unconverged on the survivor",
+                       fleet.explained(f"default/{names[i]}" for i in kept_i), cleared_at)
             calm = time.monotonic()
-
-            def idle() -> dict | None:
-                views = read()
-                if views is None or replica_journeys(views[survivor]["metrics"]) != (0, 0.0):
-                    if time.monotonic() - calm > AUTOSCALE_SETTLE_S:
-                        raise PhaseError(
-                            f"teardown: journeys in flight on the survivor "
-                            f"{replica_journeys(views[survivor]['metrics']) if views else None} "
-                            f"{time.monotonic() - calm} s after calm"
-                        )
-                    return None
-                return views
-
-            final = _wait_for("no journey in flight on the survivor", idle, running(), calm)
+            final = fleet.idle(AUTOSCALE_SETTLE_S)
             settle_s = time.monotonic() - calm
-            elapsed = time.monotonic() - deleted_at
             time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
         watch.check()
         # the end state
         half = len(kept_i)
         snap_owners = aws.accelerator_owners()
-        if aws.chain_counts() != (half, half, half) or sorted(snap_owners) != sorted(plan["kept"].values()):
+        if fleet.chains() != (half, half, half) or sorted(snap_owners) != sorted(plan["kept"].values()):
             raise PhaseError(
-                f"teardown: chain counts {aws.chain_counts()}, owners {sorted(snap_owners.values())} "
+                f"teardown: chain counts {fleet.chains()}, owners {sorted(snap_owners.values())} "
                 f"at the end (want the {half} kept Services' accelerators)"
             )
         have = record_names()
@@ -2931,24 +2526,23 @@ def teardown_fleet(
         # process, and never by the survivor for one the dead replica
         # disabled and committed (seen disabled at the watch's first read
         # after the kill)
-        logged = {r: DISABLE_LINE.findall(children[r].stderr()) for r in (0, 1)}
+        logged = {r: DISABLE_LINE.findall(fleet.children[r].stderr()) for r in (0, 1)}
         repeated = {
             r: sorted({a for a in arns if arns.count(a) > 1}) for r, arns in logged.items()
         }
         again = sorted(
-            set(logged[survivor]) & set(logged[kill["victim"]])
-            & set(watch.result["disabled_at_kill"] or ())
+            set(logged[survivor]) & set(logged[victim])
+            & set(watch.result.get("disabled_at_kill") or ())
         )
         if any(repeated.values()) or again:
             raise PhaseError(
                 f"teardown: second disables: repeated in one log {repeated}, by the survivor "
                 f"after the dead replica's {again}"
             )
-        over = []
-        for r in (0, 1):
-            for match in SWEEP_LINE.finditer(children[r].stderr()):
-                if int(match[2]) + int(match[3]) > gc["max_deletes"]:
-                    over.append((r, match[0]))
+        over = [
+            (r, match[0]) for r in (0, 1) for match in SWEEP_LINE.finditer(fleet.children[r].stderr())
+            if int(match[2]) + int(match[3]) > gc["max_deletes"]
+        ]
         gc_final = final[survivor]["gc"]
         if over or gc_final["deleted_total"] < kill["victim_orphans"]:
             raise PhaseError(
@@ -2956,66 +2550,30 @@ def teardown_fleet(
                 f"{gc_final['deleted_total']} for {kill['victim_orphans']} orphans of the dead "
                 f"replica's shards"
             )
-        calls: dict[str, float] = {}
-        for r, scrape in ((kill["victim"], victim_scrape), (survivor, final[survivor])):
-            for family, count in scrape["calls"].items():
-                calls[family] = calls.get(family, 0.0) + count - base[r]["calls"].get(family, 0.0)
-        cpu[survivor] += cpu_seconds(pids[survivor])
-        own_cpu = sum(os.times()[:2]) - sum(own[:2])
-        exit_status = children[survivor].terminate()
-    finally:
-        for child in children:
-            child.kill()
-        server.stop()
-    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
-    if exit_status != 0 or tracebacks:
-        raise PhaseError(f"teardown: the survivor exited {exit_status}, tracebacks from {tracebacks}")
-    counters = {
-        k: 0 for k in ("candidates", "grace_held", "deleted", "adopted", "budget_deferred",
-                       "skipped_no_shards")
-    }
-    for reports in sweeps.values():
-        for report in reports.values():
-            for key in counters:
-                value = report.get(key, 0)
-                counters[key] += sum(value.values()) if isinstance(value, dict) else int(value)
-    before_kill = kill["watch"]["gone"]
+        (exit_status,) = fleet.terminate().values()
     return {
         "services": n,
         "deleted": len(doomed_i),
         "hostnames": {"kept": len(plan["kept_hosts"]), "deleted": len(plan["doomed_hosts"])},
         "latency_s": latency,
-        "lease_s": lease_s,
         "start_owned": [sorted(start_owned[r]) for r in sorted(start_owned)],
-        "converge_s": converge_s,
-        "burst_s": burst_s,
-        "reactive_teardowns_per_s": before_kill / kill["at_s"],
         "kill": kill,
         "mop_up_s": mop_up_s,
         "mop_up_bound_s": bound_s,
-        "sweeps_to_mop_up": sweeps_to_mop,
-        "survivor_calls_to_mop_up": ops_to_mop,
         "journeys_settle_s": settle_s,
-        "gc_counters": counters,
-        "gc_sweeps_seen": {r: len(reports) for r, reports in sweeps.items()},
         "gc_survivor": {
             k: gc_final[k] for k in ("sweeps_total", "deleted_total", "adopted_total", "pending")
         },
         "disables": {
             "watch_starts": sum(watch.result["starts"].get(a, 0) for a in doomed_arns),
             "logged": {r: len(arns) for r, arns in logged.items()},
-            "disabled_at_kill": len(watch.result["disabled_at_kill"] or ()),
+            "disabled_at_kill": len(watch.result.get("disabled_at_kill") or ()),
         },
-        "aws_calls": {family: int(count) for family, count in sorted(calls.items())},
-        "calls_per_chain": sum(calls.values()) / len(doomed_i),
-        "call_rates_max": dict(sorted(budget.rates_max.items())),
-        "aimd_ceiling_sums_max": dict(sorted(budget.ceilings_max.items())),
+        "call_rates_max": dict(sorted(fleet.budget.rates_max.items())),
+        "aimd_ceiling_sums_max": dict(sorted(fleet.budget.ceilings_max.items())),
         "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"]},
-        "elapsed_s": elapsed,
-        "host_cores_busy": (sum(cpu.values()) + own_cpu) / elapsed,
         "exit": exit_status,
-        "peak_rss_mib": {c.name: c.peak_rss_mib for c in children},
-        "aws_state": pkg.fake_backend.FileBackedFakeAWSBackend(state_path).snapshot_state(),
+        "aws_state": fleet.snapshot(),
     }
 
 
@@ -3023,21 +2581,17 @@ def teardown_fleet(
 # the drift phase: drift resync over a package's controller processes
 # ---------------------------------------------------------------------------
 
-def drift_view(data: dict) -> dict:
+def drift_state(data: dict) -> dict:
     """One read of the fake account's state file (``data``, as saved):
     the accelerators (enabled, listeners), endpoint groups (parent and
     endpoint weights) and records a tamper's repair is judged by, and
     the owner tags that repeat."""
-    accelerators = {}
-    owners = []
-    for entry in data.get("accelerators", []):
-        accel = entry["accelerator"]
-        accelerators[accel["accelerator_arn"]] = (
-            accel["enabled"], [listener["listener_arn"] for listener in entry["listeners"]]
+    accelerators = {
+        entry["accelerator"]["accelerator_arn"]: (
+            entry["accelerator"]["enabled"], [listener["listener_arn"] for listener in entry["listeners"]]
         )
-        owner = dict(map(tuple, entry["tags"])).get("aws-global-accelerator-owner")
-        if owner:
-            owners.append(owner)
+        for entry in data.get("accelerators", [])
+    }
     groups = {
         eg["endpoint_group_arn"]: (eg["parent"], {d["endpoint_id"]: d["weight"] for d in eg["endpoints"]})
         for eg in data.get("endpoint_groups", [])
@@ -3049,12 +2603,12 @@ def drift_view(data: dict) -> dict:
         "accelerators": accelerators,
         "groups": groups,
         "records": records,
-        "repeated": sorted({o for o in owners if owners.count(o) > 1}),
+        "repeated": repeated_owners(data.get("accelerators", [])),
     }
 
 
 def tamper_repaired(view: dict, tamper: dict) -> bool:
-    """Whether ``view`` (``drift_view``) shows ``tamper`` repaired."""
+    """Whether ``view`` (``drift_state``) shows ``tamper`` repaired."""
     kind = tamper["kind"]
     if kind == "disable":
         accel = view["accelerators"].get(tamper["accelerator"])
@@ -3071,105 +2625,24 @@ def tamper_repaired(view: dict, tamper: dict) -> bool:
     return view["records"].get(tuple(tamper["record"])) == tamper["want"]
 
 
-def _watch_drift(state_path: str, plan: str, shared: dict, stop, ready, out_path: str) -> None:
-    """``DriftWatch``'s loop, in a process of its own: read the state
-    file every ``RESIZE_POLL`` s until ``stop``; stamp in ``shared`` the
-    first read (monotonic s) that shows each applied tamper repaired;
-    then write the duplicates seen, the tampers never seen open, the
-    read count and the longest gap between reads to ``out_path``."""
-    tampers = json.loads(plan)
-    applied, repaired = shared["applied"], shared["repaired"]
-    faults: list[str] = []
-    seen_open: set[int] = set()
-    polls, max_gap, previous = 0, 0.0, None
-    while True:
-        began = time.monotonic()
-        with open(state_path) as f:
-            view = drift_view(json.load(f))
-        now = time.monotonic()
-        if previous is not None:
-            max_gap = max(max_gap, now - previous)
-        previous, polls = now, polls + 1
-        if view["repeated"] and len(faults) < 20:
-            faults.append(f"read {polls}: owners repeated {view['repeated']}")
-        with shared["lock"]:
-            for i, tamper in enumerate(tampers):
-                if not applied[i] or began < applied[i] or repaired[i]:
-                    continue
-                if tamper_repaired(view, tamper):
-                    repaired[i] = now
-                else:
-                    seen_open.add(i)
-        ready.set()
-        if stop.wait(RESIZE_POLL):
-            break
-    pathlib.Path(out_path).write_text(json.dumps({
-        "faults": faults, "never_open": sorted(set(range(len(tampers))) - seen_open),
-        "polls": polls, "max_gap_s": max_gap,
-    }))
-
-
-class DriftWatch:
-    """Reads the shared account's state file every ``RESIZE_POLL`` s for
-    the whole drill, in a process of its own (as ``DuplicateWatch``):
-    ``repaired()`` holds, per tamper of the plan, the first read after
-    ``applied(i)`` that shows it repaired (monotonic s, 0.0 while open).
-    ``check`` raises a repeated accelerator owner seen at any read, or a
-    gap between reads over ``RESIZE_POLL_BOUND``."""
-
-    def __init__(self, state_path: str, tampers: list[dict], workdir: pathlib.Path):
-        context = multiprocessing.get_context("spawn")
-        self._shared = {
-            "lock": context.Lock(),
-            "applied": context.Array("d", len(tampers), lock=False),
-            "repaired": context.Array("d", len(tampers), lock=False),
-        }
-        self._stop, self._ready = context.Event(), context.Event()
-        self._out = workdir / "drift-watch.json"
-        self._process = context.Process(
-            target=_watch_drift, name="drift-watch", daemon=True,
-            args=(state_path, json.dumps(tampers), self._shared, self._stop, self._ready,
-                  str(self._out)),
-        )
-        self.result: dict = {}
-
-    def applied(self, i: int) -> None:
-        """Mark tamper ``i`` committed (monotonic s): reads that start
-        after it judge its repair."""
-        with self._shared["lock"]:
-            self._shared["applied"][i] = time.monotonic()
-
-    def times(self) -> tuple[list[float], list[float]]:
-        with self._shared["lock"]:
-            return list(self._shared["applied"]), list(self._shared["repaired"])
-
-    def __enter__(self) -> "DriftWatch":
-        self._process.start()
-        if not self._ready.wait(PROCESS_DEADLINE):
-            self._process.kill()
-            raise PhaseError("the drift watch never read the state file")
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._stop.set()
-        self._process.join(JOIN_TIMEOUT)
-        if self._process.is_alive():
-            self._process.kill()
-            self._process.join(JOIN_TIMEOUT)
-        if self._out.exists():
-            self.result = json.loads(self._out.read_text())
-
-    def check(self) -> None:
-        result = self.result
-        if self._process.exitcode != 0 or not result.get("polls"):
-            raise PhaseError(f"the drift watch exited {self._process.exitcode}")
-        if result["faults"]:
-            raise PhaseError(f"drift: duplicate accelerators {result['faults']}")
-        if result["max_gap_s"] > RESIZE_POLL_BOUND:
-            raise PhaseError(
-                f"the drift watch went {result['max_gap_s']} s between reads "
-                f"(bound {RESIZE_POLL_BOUND} s)"
-            )
+def drift_view(data: dict, plan: list[dict], kept: dict, shared: dict, began: float, now: float) -> list[str]:
+    """``StateWatch``'s drift check over ``plan``, the drill's tampers: a
+    repeated accelerator owner tag is a fault; each tamper's repair is
+    stamped in ``shared["repaired"]`` at the first read (monotonic s)
+    begun after ``shared["applied"]`` stamped it that shows it repaired;
+    keeps the tampers seen open (``open``)."""
+    view = drift_state(data)
+    seen_open = kept.setdefault("open", [])
+    with shared["lock"]:
+        applied, repaired = shared["applied"], shared["repaired"]
+        for i, tamper in enumerate(plan):
+            if not applied[i] or began < applied[i] or repaired[i]:
+                continue
+            if tamper_repaired(view, tamper):
+                repaired[i] = now
+            elif i not in seen_open:
+                seen_open.append(i)
+    return [f"owners repeated {view['repeated']}"] if view["repeated"] else []
 
 
 def drift_journeys(metrics: str) -> tuple[int, int, int]:
@@ -3225,24 +2698,22 @@ def foreign_syncs(stderr: str, shard_of_key) -> list[str]:
     return foreign
 
 
-def time_ticks(read, running, parts: dict[int, dict], period: float):
-    """Time drift ticks on each replica until one re-verified at least
-    half its chains (a tick inside the verify window reads little):
-    from the last read with no journey in flight and no drift journey
-    closed to the first read with none in flight again, with the reads
-    by operation in between.  A window where other reconciles ran too
-    (the informers' 30 s resync re-reconciles every binding) is not
-    counted.  ``read`` scrapes the live replicas (``running``);
-    ``parts`` holds each one's accelerators.  Returns the timed ticks
-    and the windows skipped, per replica."""
+def time_ticks(fleet: ProcessFleet, parts: dict[int, dict], period: float):
+    """Time drift ticks on each live replica of ``fleet`` until one
+    re-verified at least half its chains (a tick inside the verify
+    window reads little): from the last read with no journey in flight
+    and no drift journey closed to the first read with none in flight
+    again, with the reads by operation in between.  A window where other
+    reconciles ran too (the informers' 30 s resync re-reconciles every
+    binding) is not counted.  ``parts`` holds each replica's
+    accelerators.  Returns the timed ticks and the windows skipped, per
+    replica."""
     ticks: dict[int, dict] = {r: {"phase": "quiet"} for r in parts}
     timed: dict[int, list[dict]] = {r: [] for r in parts}
     shared = {r: 0 for r in parts}
-    started = time.monotonic()
-    while any(t["phase"] != "done" for t in ticks.values()):
-        for child in running():
-            child.check_alive()
-        views = read()
+
+    def step() -> bool:
+        views = fleet.read()
         now = time.monotonic()
         for r, scrape in (views or {}).items():
             tick = ticks[r]
@@ -3270,9 +2741,10 @@ def time_ticks(read, running, parts: dict[int, dict], period: float):
                 })
                 verified = 2 * reads.get("list_endpoint_groups", 0) >= parts[r]["accelerators"]
                 tick.update(phase="done" if verified else "quiet", closed=closed)
-        if now - started > 4 * period + PROCESS_DEADLINE / 10:
-            raise PhaseError(f"drift: no verifying tick timed on every replica: {timed}")
-        time.sleep(DRIFT_TICK_READ)
+        return all(t["phase"] == "done" for t in ticks.values())
+
+    fleet.wait("verifying tick timed on every replica", step, time.monotonic(),
+               every=DRIFT_TICK_READ, deadline=4 * period + PROCESS_DEADLINE / 10)
     return timed, shared
 
 
@@ -3285,7 +2757,7 @@ def apply_tamper(pkg, aws, state_path: str, zone_id: str, records: dict, tamper:
     if kind == "disable":
         aws.update_accelerator(tamper["accelerator"], enabled=False)
     elif kind == "listener":
-        for eg, (parent, _) in drift_view(account_state(state_path))["groups"].items():
+        for eg, (parent, _) in drift_state(account_state(state_path))["groups"].items():
             if parent == tamper["listener"]:
                 aws.delete_endpoint_group(eg)
         aws.delete_listener(tamper["listener"])
@@ -3384,26 +2856,28 @@ def drift_fleet(
     binding bound to one endpoint.  (b) One tick is timed on each
     replica, from its drift journeys opening to none in flight, with its
     reads by operation.  (c) At once, in both shards, ``tampers`` are
-    applied out of band (``DRIFT_WINDOWS``); a ``DriftWatch`` process
-    reads the account every 0.1 s.  (d) As soon as the first tamper of
-    shard ``victim_shard`` is repaired, its holder gets SIGKILL; the
-    survivor steals its lease one lease duration later and adopts its
-    keys.  (e) Once every tamper is repaired, every binding is deleted,
-    so that its finalizer removes its endpoint.
+    applied out of band (``DRIFT_WINDOWS``); a ``StateWatch``
+    (``drift_view``) reads the account every 0.1 s.  (d) As soon as the
+    first tamper of shard ``victim_shard`` is repaired, its holder gets
+    SIGKILL; the survivor steals its lease one lease duration later and
+    adopts its keys.  (e) Once every tamper is repaired, every binding
+    is deleted, so that its finalizer removes its endpoint.
 
     Hard bounds (``PhaseError``): each tamper repaired within ``period``
     + its window (one discovery TTL for a disable) + the longest tick,
     plus the takeover for the victim's shard; some of the victim shard's
     tampers still open at the kill; each replica's reads in the timed
     tick within ``drift_ceilings``; no accelerator owner repeated at any
-    read; no reconcile logged by a replica for a key its shards did not
-    own then; the fleet's call rate and summed AIMD ceilings within
+    read, and never more complete chains than the fleet's; no reconcile
+    logged by a replica for a key its shards did not own then; the
+    fleet's call rate and summed AIMD ceilings within
     ``SHARD_BUDGET_QPS`` per service at every read; no journey in flight
     on the survivor within ``period`` + ``AUTOSCALE_SETTLE_S`` s of the
-    last repair; every binding gone, its endpoint out of its group and
-    the out-of-band chains otherwise as built; exactly the fleet's
-    chains and pairs at the end; the survivor exits 0 on SIGTERM.
-    Returns the run's times, reads and final AWS state."""
+    bindings' finalizers; every binding gone, its endpoint out of its
+    group and the out-of-band chains otherwise as built; exactly the
+    fleet's chains and pairs at the end; the survivor exits 0 on
+    SIGTERM.  Returns the run's repairs against their bounds, tick
+    reads, kill, stage catalog and final AWS state."""
     n_ing = max(1, n // 10)
     n_egb = n_bindings if n_bindings is not None else max(1, n // 10)
     hosted = [i for i in range(n) if teardown_hostname(i, hostname_every)]
@@ -3441,28 +2915,12 @@ def drift_fleet(
     shard_of = {key_of(obj): ring.shard_for_key(key_of(obj)) for obj in services + ingresses + bindings}
     shards = {0, 1}
     placement = ["--shards-per-replica", "2", "--drift-resync-period", f"{period:g}"]
-    server = pkg.testserver.TestApiServer().start()
-    children: list[Child] = []
-    live = [0, 1]
-    budget = BudgetWatch("drift")
-    profile_capture: dict = {}
-    try:
-        kubeconfig = write_kubeconfig(workdir, server.url)
-        ports = [_free_port() for _ in live]
-        spawned = time.monotonic()
-        for replica, port in enumerate(ports):
-            children.append(Child(
-                f"controller-{replica}",
-                shard_controller_argv(package, kubeconfig, port, 2, placement), env, workdir,
-            ))
-
-        def running() -> list[Child]:
-            return [children[r] for r in live]
-
-        _wait_for("every shard lease held", lambda: shard_placement(ports, live, shards, False),
-                  running(), spawned)
-        lease_s = time.monotonic() - spawned
-        client = pkg.rest.RestClusterClient(server.url)
+    with ProcessFleet(pkg, "drift", workdir, env, chains=total) as fleet:
+        spawned = fleet.spawn(2, lambda port: shard_controller_argv(
+            package, fleet.kubeconfig, port, 2, placement
+        ))
+        fleet.wait("every shard lease held", lambda: fleet.placement(shards), spawned)
+        client = fleet.client
 
         def record_map() -> dict:
             return {(r.name, r.type): r for r in aws.records_in_zone(zone_id)}
@@ -3473,59 +2931,26 @@ def drift_fleet(
                 for b in bindings
             ]
 
-        def create(kind: str, obj) -> None:
-            """Create ``obj``, again after a reset connection (the test
-            apiserver's accept backlog overflows under the replicas'
-            own requests); an object a lost answer created counts."""
-            for attempt in range(3):
-                try:
-                    client.create(kind, obj)
-                    return
-                except pkg.errors.AlreadyExistsError:
-                    if not attempt:
-                        raise
-                    return
-                except ConnectionError:
-                    if attempt == 2:
-                        raise
-                    time.sleep(0.1)
-
         start = time.monotonic()
-        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
-            for kind, objects in (("Service", services), ("Ingress", ingresses),
-                                  ("EndpointGroupBinding", bindings)):
-                list(pool.map(lambda obj: create(kind, obj), objects))
+        for kind, objects in (("Service", services), ("Ingress", ingresses),
+                              ("EndpointGroupBinding", bindings)):
+            fleet.create(kind, objects)
 
         def converged() -> bool:
-            chains = aws.chain_counts()
-            if max(chains) > total:
-                raise PhaseError(f"drift: chain counts {chains} exceed {total}: duplicates")
             have = record_map()
             return (
-                chains == (total, total, total)
+                fleet.chains() == (total, total, total)
                 and all((h, t) in have for h in hosts for t in ("TXT", "A"))
                 and all(len(ids) == 1 for ids in bound_ids())
             )
 
-        _wait_for(
+        fleet.wait(
             f"{total} complete chains, {len(hosts)} TXT+A pairs and {n_egb} bindings bound",
-            converged, running(), start,
+            converged, start,
         )
-        converge_s = time.monotonic() - start
-        start_owned = _wait_for(
-            "one shard lease held by each replica",
-            lambda: shard_placement(ports, live, shards, True), running(), start,
+        start_owned = fleet.wait(
+            "one shard lease held by each replica", lambda: fleet.placement(shards, True), start
         )
-        def read() -> dict[int, dict] | None:
-            """The live replicas as scraped, each read holding the
-            fleet's quota (``BudgetWatch``)."""
-            try:
-                now = time.monotonic()
-                scrapes = {r: scrape_replica(ports[r]) for r in live}
-            except OSError:
-                return None
-            budget.hold(scrapes, now)
-            return scrapes
 
         # (b) ticks on each replica, timed from its drift journeys opening
         # until none is in flight, with their reads by operation, until
@@ -3533,7 +2958,7 @@ def drift_fleet(
         # reads little)
         owner_of_shard = {next(iter(o)): r for r, o in start_owned.items()}
         parts = {}
-        for r in live:
+        for r in fleet.live:
             mine = [key for key, shard in shard_of.items() if owner_of_shard[shard] == r]
             parts[r] = {
                 "accelerators": sum(1 for k in mine if not k.startswith("default/binding")),
@@ -3541,7 +2966,7 @@ def drift_fleet(
                 "objects": len(mine),
                 "zones": 1,
             }
-        timed, shared = time_ticks(read, running, parts, period)
+        timed, shared = time_ticks(fleet, parts, period)
         accelerators_in_account = len(aws.all_accelerator_arns())
         ceilings = {r: drift_ceilings(parts[r], accelerators_in_account) for r in timed}
         read_faults = {}
@@ -3564,9 +2989,7 @@ def drift_fleet(
 
         # (c) the tamper plan: in each shard, each kind on an object of its own
         snap = account_state(state_path)
-        accel_of = {
-            dict(map(tuple, e["tags"])).get("aws-global-accelerator-owner"): e for e in snap["accelerators"]
-        }
+        accel_of = {owner_tag(e): e for e in snap["accelerators"]}
         records = record_map()
         plan: list[dict] = []
         for shard in sorted(shards):
@@ -3606,42 +3029,27 @@ def drift_fleet(
                         ),
                     )
                 plan.append(tamper)
-        with DriftWatch(state_path, plan, workdir) as watch:
+        stamps = [0.0] * len(plan)
+        with StateWatch("drift", state_path, drift_view, workdir, plan=plan,
+                        shared={"applied": ("d", stamps), "repaired": ("d", stamps)}) as watch:
             tampered_at = time.monotonic()
             for i, tamper in enumerate(plan):
                 apply_tamper(pkg, aws, state_path, zone_id, records, tamper)
-                watch.applied(i)
-            tamper_s = time.monotonic() - tampered_at
+                watch.set("applied", time.monotonic(), i)
             # (d) the kill, at the victim shard's first repair: the watch
             # is polled alone here, so the kill lands within a read of it
             victims = [i for i, t in enumerate(plan) if t["shard"] == victim_shard]
-            while True:
-                for child in running():
-                    child.check_alive()
-                _, repaired = watch.times()
-                if any(repaired[i] for i in victims):
-                    break
-                if time.monotonic() - tampered_at > PROCESS_DEADLINE:
-                    raise PhaseError(f"drift: no tamper of shard {victim_shard} repaired")
-                time.sleep(0.02)
-            owners = _wait_for(
-                "a read of the replicas' shards", lambda: shard_placement(ports, live, shards, False),
-                running(), time.monotonic(),
-            )
-            (victim,) = [r for r in live if victim_shard in owners[r]]
-            victim_metrics = scrape_replica(ports[victim])["metrics"]
-            children[victim].popen.send_signal(signal.SIGKILL)
-            children[victim].popen.wait(timeout=EXIT_DEADLINE)
-            killed_at = time.monotonic()
-            live.remove(victim)
-            (survivor,) = live
+            fleet.wait(f"repair of a tamper of shard {victim_shard}",
+                       lambda: any(watch.read()["repaired"][i] for i in victims), tampered_at, every=0.02)
+            victim, victim_owned = fleet.holder(victim_shard, shards)
+            victim_metrics = fleet.kill(victim)["metrics"]
+            (survivor,) = fleet.live
             # what the victim committed is in the file now, and it
             # commits nothing more
-            at_kill = drift_view(account_state(state_path))
+            at_kill = drift_state(account_state(state_path))
             kill = {
                 "victim": victim,
-                "owned": sorted(owners[victim]),
-                "at_s": killed_at - tampered_at,
+                "owned": victim_owned,
                 "open": [plan[i]["kind"] for i in victims if not tamper_repaired(at_kill, plan[i])],
             }
             by_victim = {i for i in victims if tamper_repaired(at_kill, plan[i])}
@@ -3650,67 +3058,47 @@ def drift_fleet(
             # the steal, every tamper repaired, and the survivor's resync
             # of the adopted keys (trigger=handoff) drained: its tick
             # over them, with the read plane dropped at the adoption
-            profiler = None
+            kill["takeover_s"] = fleet.takeover(lambda block: set(block.get("owned", ())) == shards)
+            taken_at = fleet.killed_at + kill["takeover_s"]
             handoff: list[tuple[float, int]] = []
             windows = {
                 kind: period if DRIFT_WINDOWS[kind] is None else DRIFT_WINDOWS[kind] for kind in tampers
             }
-            deadline = period + max(windows.values()) + 2 * float(SHARD_ENV["AGAC_LEASE_DURATION"]) + 60
-            while True:
-                for child in running():
-                    child.check_alive()
-                now = time.monotonic()
-                views = read()
-                if "takeover_s" not in kill and views is not None:
-                    if set(views[survivor]["sharding"].get("owned", ())) == shards:
-                        kill["takeover_s"] = now - killed_at
-                        profiler = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-                        capture = profiler.submit(
-                            _get_json,
-                            f"http://127.0.0.1:{ports[survivor]}/debug/profile?seconds={DRIFT_PROFILE_S:g}",
-                        )
-                if "takeover_s" in kill and views is not None:
+
+            def repaired_and_drained() -> bool:
+                views = fleet.read()
+                if views is not None:
                     closed = sum(
                         value for labels, value in metric_samples(
                             views[survivor]["metrics"], "agac_journey_converge_seconds_count"
                         ).items() if 'trigger="handoff"' in labels
                     )
-                    handoff.append((now, int(closed)))
-                applied, repaired = watch.times()
+                    handoff.append((time.monotonic(), int(closed)))
                 drained = len(handoff) > 3 and len({c for _, c in handoff[-4:]}) == 1 and handoff[-1][1]
-                if all(repaired) and drained:
-                    break
-                if now - tampered_at > deadline:
-                    raise PhaseError(
-                        f"drift: tampers open {[t['kind'] for t, r in zip(plan, repaired) if not r]}, "
-                        f"handoff journeys closed {handoff[-4:]} {now - tampered_at} s after the "
-                        f"tamper (kill {kill})"
-                    )
-                time.sleep(TEARDOWN_READ)
-            taken_at = killed_at + kill["takeover_s"]
+                return all(watch.read()["repaired"]) and bool(drained)
+
+            fleet.wait(
+                "repair of every tamper with the handoff journeys drained", repaired_and_drained,
+                tampered_at, every=TEARDOWN_READ,
+                deadline=period + max(windows.values()) + 2 * float(SHARD_ENV["AGAC_LEASE_DURATION"]) + 60,
+            )
             kill["adoption_tick_s"] = next(t for t, c in handoff if c == handoff[-1][1]) - taken_at
             kill["handoff_journeys"] = handoff[-1][1]
+            times = watch.read()
             repairs = []
-            late = []
-            for i, (tamper, at, done) in enumerate(zip(plan, applied, repaired)):
+            for i, (tamper, at, done) in enumerate(zip(plan, times["applied"], times["repaired"])):
                 # one tick of the replica that repairs: after the takeover
                 # the survivor's queue holds its adoption's resync too
                 tick = max(tick_s, kill["adoption_tick_s"]) if done > taken_at else tick_s
                 bound = period + windows[tamper["kind"]] + tick + (
                     kill["takeover_s"] if tamper["shard"] == victim_shard else 0.0
                 )
-                repair = {"kind": tamper["kind"], "shard": tamper["shard"], "key": tamper["key"],
-                          "repair_s": done - at, "bound_s": bound,
-                          "by": "victim" if i in by_victim else "survivor"}
-                repairs.append(repair)
-                if repair["repair_s"] > bound:
-                    late.append(repair)
+                repairs.append({"kind": tamper["kind"], "shard": tamper["shard"], "key": tamper["key"],
+                                "repair_s": done - at, "bound_s": bound,
+                                "by": "victim" if i in by_victim else "survivor"})
+            late = [repair for repair in repairs if repair["repair_s"] > repair["bound_s"]]
             if late:
                 raise PhaseError(f"drift: tampers repaired past their bounds {late}")
-            repaired_s = max(repaired) - tampered_at
-            if profiler is not None:
-                profile_capture = capture.result(timeout=DRIFT_PROFILE_S + 30)
-                profiler.shutdown()
             # (e) the bindings' finalizers
             unbound_at = time.monotonic()
             for binding in bindings:
@@ -3725,30 +3113,14 @@ def drift_fleet(
                         pass
                 return external_state(account_state(state_path), group_arns) == external_before
 
-            _wait_for("every binding finalized and its endpoint removed", unbound, running(), unbound_at)
-            unbind_s = time.monotonic() - unbound_at
+            fleet.wait("binding left unfinalized or its endpoint left", unbound, unbound_at)
             calm = time.monotonic()
-
-            def idle() -> dict | None:
-                views = read()
-                if views is None or replica_journeys(views[survivor]["metrics"]) != (0, 0.0):
-                    if time.monotonic() - calm > period + AUTOSCALE_SETTLE_S:
-                        raise PhaseError(
-                            f"drift: journeys in flight on the survivor "
-                            f"{replica_journeys(views[survivor]['metrics']) if views else None} "
-                            f"{time.monotonic() - calm} s after calm"
-                        )
-                    return None
-                return views
-
-            final = _wait_for("no journey in flight on the survivor", idle, running(), calm)
+            final = fleet.idle(period + AUTOSCALE_SETTLE_S)
             settle_s = time.monotonic() - calm
-            elapsed = time.monotonic() - start
             time.sleep(2 * RESIZE_POLL)  # the watch reads the settled state once more
         watch.check()
         # the end state: the fleet's chains and pairs, every repair standing
-        snap = account_state(state_path)
-        view = drift_view(snap)
+        view = drift_state(account_state(state_path))
         fleet_owners = {f"service/{key_of(s)}" for s in services} | {
             f"ingress/{key_of(i)}" for i in ingresses
         }
@@ -3760,9 +3132,9 @@ def drift_fleet(
         ]
         if undone:
             raise PhaseError(f"drift: repairs undone at the end: {undone}")
-        if aws.chain_counts() != (total, total, total) or not fleet_owners <= owners_now or len(owners_now) != total:
+        if fleet.chains() != (total, total, total) or not fleet_owners <= owners_now or len(owners_now) != total:
             raise PhaseError(
-                f"drift: chain counts {aws.chain_counts()}, {len(owners_now)} owners at the end "
+                f"drift: chain counts {fleet.chains()}, {len(owners_now)} owners at the end "
                 f"(want the fleet's {n + n_ing} and {n_egb} out-of-band chains)"
             )
         have = set(record_map())
@@ -3770,19 +3142,12 @@ def drift_fleet(
         if have != want:
             raise PhaseError(f"drift: records {sorted(have ^ want)} differ from the fleet's pairs")
         foreign = {
-            r: foreign_syncs(children[r].stderr(), lambda key: shard_of.get(key))
+            r: foreign_syncs(fleet.children[r].stderr(), lambda key: shard_of.get(key))
             for r in (0, 1)
         }
         if any(foreign.values()):
             raise PhaseError(f"drift: reconciles of keys the replica's shards did not own: {foreign}")
-        exit_status = children[survivor].terminate()
-    finally:
-        for child in children:
-            child.kill()
-        server.stop()
-    tracebacks = [c.name for c in children if "Traceback" in c.stderr()]
-    if exit_status != 0 or tracebacks:
-        raise PhaseError(f"drift: the survivor exited {exit_status}, tracebacks from {tracebacks}")
+        (exit_status,) = fleet.terminate().values()
     return {
         "services": n,
         "ingresses": n_ing,
@@ -3790,30 +3155,19 @@ def drift_fleet(
         "hostnames": len(hosts),
         "latency_s": latency,
         "period_s": period,
-        "lease_s": lease_s,
         "start_owned": {r: sorted(o) for r, o in start_owned.items()},
-        "converge_s": converge_s,
         "ticks": ticks,
         "tick_s": tick_s,
-        "period_over_tick": period / tick_s,
-        "tamper_s": tamper_s,
         "repairs": repairs,
         "kill": kill,
-        "repaired_s": repaired_s,
-        "unbind_s": unbind_s,
         "journeys_settle_s": settle_s,
-        "call_rates_max": dict(sorted(budget.rates_max.items())),
-        "aimd_ceiling_sums_max": dict(sorted(budget.ceilings_max.items())),
+        "call_rates_max": dict(sorted(fleet.budget.rates_max.items())),
+        "aimd_ceiling_sums_max": dict(sorted(fleet.budget.ceilings_max.items())),
         "watch": {"polls": watch.result["polls"], "max_gap_s": watch.result["max_gap_s"],
-                  "never_open": [plan[i]["kind"] for i in watch.result["never_open"]]},
-        "stages": stage_attribution(pkg, [victim_metrics, final[survivor]["metrics"]]),
-        "profile": {
-            "seconds": DRIFT_PROFILE_S, "samples": profile_capture.get("samples"),
-            "top": profile_capture.get("top", [])[:5],
-        },
-        "elapsed_s": elapsed,
+                  "never_open": [t["kind"] for i, t in enumerate(plan) if i not in watch.result["open"]]},
+        "stages": {"catalog": stage_catalog(pkg, [victim_metrics, final[survivor]["metrics"]])},
         "exit": exit_status,
-        "aws_state": pkg.fake_backend.FileBackedFakeAWSBackend(state_path).snapshot_state(),
+        "aws_state": fleet.snapshot(),
     }
 
 
@@ -4032,24 +3386,22 @@ def phase_device(torch) -> str:
 
 def phase_converge(n: int, card: str) -> dict:
     pkg = load(PORT)
-    fleet, elapsed = converge(pkg, n)
+    fleet, _ = converge(pkg, n)
     (accels, listeners, groups), records, bound = fleet.progress()
     result = {
         "services": n,
         "ingresses": fleet.n_ing,
         "bindings": fleet.n_egb,
-        "elapsed_s": elapsed,
-        "objects_per_s": fleet.n_objects / elapsed,
         "chains": [accels, listeners, groups],
         "records": records,
         "bound": bound,
         "aws_calls": len(fleet.aws.calls),
     }
     print(
-        f"converge: {n} Services + {fleet.n_ing} Ingresses + {fleet.n_egb} bindings "
-        f"in {elapsed} s = {result['objects_per_s']} objects/s "
-        f"({WORKERS} workers per controller, unshaped fake AWS; host-bound, the card "
-        f"is idle in this phase) on {card}",
+        f"converge: {n} Services + {fleet.n_ing} Ingresses + {fleet.n_egb} bindings converged "
+        f"({WORKERS} workers per controller, unshaped fake AWS): chains {result['chains']}, "
+        f"{records} Route53 records, {bound} bindings bound, every thread joined (host-bound, "
+        f"the card is idle in this phase) on {card}",
         flush=True,
     )
     print("converge " + json.dumps(result), flush=True)
@@ -4062,12 +3414,10 @@ def phase_process(n: int, card: str) -> dict:
         result = process(pkg, PORT, n, pathlib.Path(workdir))
     print(
         f"process: 2 controller replicas + webhook (python -m {PORT}), {n} Services + "
-        f"{result['ingresses']} Ingresses over HTTP: lease held after {result['lease_s']} s, "
-        f"every Event after {result['events_s']} s, every object converged after "
-        f"{result['converged_s']} s from spawn = {result['objects_per_s']} objects/s; "
-        f"AWS calls leader/standby {result['aws_calls'][result['leader']]}/"
-        f"{result['aws_calls'][1 - result['leader']]}; peak RSS MiB (sampled every 0.25 s) "
-        f"{result['peak_rss_mib']} "
+        f"{result['ingresses']} Ingresses over HTTP: one Lease holder, every Event, every object "
+        f"converged on the leader's /debug/explain, AWS calls leader/standby "
+        f"{result['aws_calls'][result['leader']]}/{result['aws_calls'][1 - result['leader']]}, "
+        f"the webhook denied the ARN change and allowed the create, exits {result['exits']} "
         f"(host-bound, the card is idle in this phase) on {card}",
         flush=True,
     )
@@ -4077,19 +3427,18 @@ def phase_process(n: int, card: str) -> dict:
 
 
 def phase_shard(n: int, card: str) -> dict:
-    """``bench.py``'s scaling curve at ``SHARD_WIDTHS`` and a width-2
-    kill run, through the port's command line; ``shard_fleet`` holds
+    """The sharded fleet through the port's command line at
+    ``SHARD_WIDTH``, at width 1 (one replica without leader election)
+    and at width 2 with the holder of shard 0 killed (the plain width 2
+    runs against the reference on the CPU,
+    ``tests/test_torch_sharding_process.py``); ``shard_fleet`` holds
     each run to its hard bounds."""
     pkg = load(PORT)
-    lease = "/".join(
-        SHARD_ENV[f"AGAC_LEASE_{k}"] for k in ("DURATION", "RENEW_DEADLINE", "RETRY_PERIOD")
-    )
-    start = time.monotonic()
-    LAST_METRICS.clear()
     runs = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-shard-") as workdir:
-        for width, kill_at in [*((w, None) for w in SHARD_WIDTHS), (2, SHARD_KILL_AT)]:
-            label = f"{width}-kill" if kill_at is not None else str(width)
+        for label, width, kill_at in (
+            (str(SHARD_WIDTH), SHARD_WIDTH, None), ("1", 1, None), ("2-kill", 2, SHARD_KILL_AT)
+        ):
             rundir = pathlib.Path(workdir) / label
             rundir.mkdir()
             run = shard_fleet(pkg, PORT, n, width, SHARD_LATENCY, rundir, kill_at=kill_at)
@@ -4098,91 +3447,42 @@ def phase_shard(n: int, card: str) -> dict:
             kill = run["kill"]
             print(
                 f"shard {label}: {width} x python -m {PORT} controller ({SHARD_WORKERS} workers, "
-                f"{SHARD_LATENCY} s fake AWS latency, the bench's lease timing {lease} s) "
-                f"converged {n} Services "
-                f"in {run['elapsed_s']} s = {run['objects_per_s']} objects/s after every shard "
-                f"lease was held ({run['lease_s']} s from spawn); owned {run['owned']}; "
-                f"call rates {run['aggregate_calls_per_s']} /s and AIMD ceiling sums "
-                f"{run['aimd_ceiling_sums']} /s per service (budget {SHARD_BUDGET_QPS}); "
-                f"journeys {run['journeys']}; {run['host_cores_busy']} of {os.cpu_count()} host "
-                f"cores busy ({run['apiserver_cores_busy']} in this process, the apiserver's); "
-                f"the account's flock held at most {run['flock_busy_share']} of the run "
-                f"({run['mutations']} mutating calls x {run['flock_op_ms']} ms)"
+                f"{SHARD_LATENCY} s fake AWS latency): shards owned {run['owned']} disjointly, {n} "
+                f"complete chains and never more, {run['journeys']['spec']} spec journeys, call "
+                f"rates at most {run['call_rates_max']} /s and AIMD ceiling sums "
+                f"{run['aimd_ceiling_sums']} /s per service (budget {SHARD_BUDGET_QPS}), exits "
+                f"{run['exits']}"
                 + ("" if kill is None else (
                     f"; SIGKILL to replica {kill['victim']} (shards {kill['owned']}) at chains "
-                    f"{kill['chains']}, {kill['at_s']} s in; the survivor owned "
-                    f"{kill['survivor_owned']} {kill['takeover_s']} s later and the fleet "
-                    f"converged {kill['converged_after_s']} s after the kill"
+                    f"{kill['chains']}, the survivor owned {kill['survivor_owned']}"
                 ))
                 + f" (host-bound, the card is idle in this phase) on {card}",
                 flush=True,
             )
-    single = runs["1"]["objects_per_s"]
-    curve = {}
-    for width in SHARD_WIDTHS:
-        run = runs[str(width)]
-        curve[str(width)] = {
-            "objects_per_s": run["objects_per_s"],
-            "speedup": run["objects_per_s"] / single,
-            "efficiency": run["objects_per_s"] / (width * single),
-            "ga_converge_p99_s": run["journeys"]["ga"]["p99_s"],
-            "host_cores_busy": run["host_cores_busy"],
-            "apiserver_cores_busy": run["apiserver_cores_busy"],
-            "flock_busy_share": run["flock_busy_share"],
-        }
-    gates = {
-        f"2-shard speedup >= {SHARD_MIN_SPEEDUP_2}": curve["2"]["speedup"] >= SHARD_MIN_SPEEDUP_2,
-        f"4-shard efficiency >= {SHARD_MIN_EFFICIENCY_4}":
-            curve["4"]["efficiency"] >= SHARD_MIN_EFFICIENCY_4,
-    }
-    result = {"runs": runs, "curve": curve, "gates": gates, "wall_s": time.monotonic() - start}
-    result["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
-    print(stage_line("shard", result["stages"], card), flush=True)
-    print(
-        f"shard: curve {curve}; bench.py's gates (not enforced here, they measure the host's "
-        f"cores): " + ", ".join(f"{k} {'met' if v else 'not met'}" for k, v in gates.items())
-        + f"; phase {result['wall_s']} s on the host of {card}",
-        flush=True,
-    )
-    print("shard " + json.dumps(result), flush=True)
-    return result
+    print("shard " + json.dumps(runs), flush=True)
+    return runs
 
 
 def phase_resize(n: int, card: str) -> dict:
     """The runbook's live resize through the port's command line;
     ``resize_fleet`` holds it to its hard bounds."""
     pkg = load(PORT)
-    LAST_METRICS.clear()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-resize-") as workdir:
-        start = time.monotonic()
         run = resize_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
-    run["wall_s"] = time.monotonic() - start
-    run["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
-    print(stage_line("resize", run["stages"], card), flush=True)
-    kill, grow = run["kill"], run["grow_journeys"]
+    kill, watch = run["kill"], run["watch"]
     print(
         f"resize: 2 x python -m {PORT} controller --shard-count {RESIZE_FROM} "
         f"--shards-per-replica {RESIZE_CAPACITY} ({SHARD_WORKERS} workers, {SHARD_LATENCY} s fake "
-        f"AWS latency), {n} Services; grow {RESIZE_FROM} -> {RESIZE_TO} requested at chains "
-        f"{run['chains_at_grow']} ({run['grow_stdout']!r}), every replica stable at "
-        f"{RESIZE_TO}x64 {run['grow_s']} s later (owned {run['grown_owned']}), {n} chains "
-        f"{run['converged_s']} s after the first create; create_accelerator calls "
-        f"{run['create_accelerator']} for {n} Services; moved keys {run['moved_keys_grow']} "
-        f"(ring vs trigger=resize journeys), GA resize journeys p50/p99 "
-        f"{grow['ga_resize']['p50_s']}/{grow['ga_resize']['p99_s']} s, spec p50/p99 "
-        f"{grow['ga']['p50_s']}/{grow['ga']['p99_s']} s, {run['grow_calls_per_moved_key']} AWS "
-        f"calls per moved key between the request and every chain closed (the last quarter's "
-        f"creates included); shrink {RESIZE_TO} -> {RESIZE_FROM}: SIGKILL to replica "
-        f"{kill['victim']} (shards {kill['owned']}, states {kill['states']}) {kill['at_s']} s "
-        f"after the request, the survivor held its leases {kill['takeover_s']} s later and was "
-        f"stable at {RESIZE_FROM}x64 {kill['stable_after_kill_s']} s after the kill "
-        f"({run['shrink_s']} s after the request; moved keys {run['moved_keys_shrink']}); "
-        f"handoff windows {run['handoff_windows']}; call rates {run['call_rates']} /s, AIMD "
-        f"ceiling sums at most {run['aimd_ceiling_sums_max']} /s (budget {SHARD_BUDGET_QPS}); "
-        f"duplicate watch {run['watch']['polls']} reads, at most {run['watch']['max_gap_s']} s "
-        f"apart, no duplicate; {run['host_cores_busy']} of {os.cpu_count()} host cores busy "
-        f"({run['apiserver_cores_busy']} in this process, the apiserver's); phase "
-        f"{run['wall_s']} s (host-bound, the card is idle in this phase) on {card}",
+        f"AWS latency), {n} Services: every replica stable at {RESIZE_TO}x64 after the grow "
+        f"(owned {run['grown_owned']}), {run['create_accelerator']} create_accelerator calls, "
+        f"{run['grow_journeys']['resize']} trigger=resize journeys for "
+        f"{run['moved_keys_grow']['ring']} moved keys; SIGKILL to replica {kill['victim']} "
+        f"(shards {kill['owned']}, states {kill['states']}) in the shrink, the survivor stable at "
+        f"{RESIZE_FROM}x64; every Service converged after each resize; AIMD ceiling sums at most "
+        f"{run['aimd_ceiling_sums_max']} /s, call rates at most {run['call_rates_max']} /s (budget "
+        f"{SHARD_BUDGET_QPS}); duplicate watch {watch['polls']} reads, at most "
+        f"{watch['max_gap_s']} s apart (bound {RESIZE_POLL_BOUND} s), no duplicate; survivor exit "
+        f"{run['exit']} (host-bound, the card is idle in this phase) on {card}",
         flush=True,
     )
     print("resize " + json.dumps(run), flush=True)
@@ -4194,47 +3494,30 @@ def phase_autoscale(card: str) -> dict:
     run and its observe-only twin side by side; ``autoscale_fleet``
     holds each to its hard bounds."""
     pkg = load(PORT)
-    start = time.monotonic()
-    LAST_METRICS.clear()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-autoscale-") as workdir:
         runs = autoscale_runs(
             pkg, PORT, AUTOSCALE_BASE, AUTOSCALE_WAVE, SHARD_LATENCY, pathlib.Path(workdir)
         )
-    runs["wall_s"] = time.monotonic() - start
-    runs["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
-    print(stage_line("autoscale (acting and observe-only)", runs["stages"], card), flush=True)
     acting, twin = runs["acting"], runs["observe-only"]
-    out, scale_in = acting["scale_out"], acting["scale_in"]
+    out = acting["scale_out"]
     print(
         f"autoscale: {AUTOSCALE_REPLICAS} x python -m {PORT} controller --autoscale "
         f"--shard-count {AUTOSCALE_FROM} --shards-per-replica 1 (queue {AUTOSCALE_QUEUE[0]} qps / "
         f"burst {AUTOSCALE_QUEUE[1]}, {SHARD_WORKERS} workers, {SHARD_LATENCY} s fake AWS "
         f"latency, interval {AUTOSCALE_INTERVAL:g} s, cooldowns {AUTOSCALE_COOLDOWN_OUT:g}/"
         f"{AUTOSCALE_COOLDOWN_IN:g} s), {AUTOSCALE_BASE} Services then a wave of "
-        f"{AUTOSCALE_WAVE}, an acting run and an observe-only twin side by side (the twin "
-        f"{AUTOSCALE_TWIN_DELAY:g} s behind); acting: ring epochs "
-        f"at {acting['epochs_s']} s after the wave's first create, scale-out by replica "
-        f"{out['replica']} for {out['reason']} {out['reaction_s']} s after the wave (burn "
-        f"{out['burn']}, oldest unconverged age {out['oldest_unconverged_age_s']} s), every "
-        f"replica stable at {AUTOSCALE_TO}x64 {out['transition_stable_s']} s after the request; "
-        f"scale-in {scale_in if scale_in is not None else 'none'}; wave drained "
-        f"{acting['drain_s']} s after its first create (observe-only twin: {twin['drain_s']} s, "
-        f"max target-shards gauge {twin['target_shards_max']}); journeys in flight 0 on every "
-        f"replica {acting['settle_s']} / {twin['settle_s']} s after the last chain with the ring "
-        f"stable; GA spec p50/p99 {acting['journeys']['ga']['p50_s']}/"
-        f"{acting['journeys']['ga']['p99_s']} s acting, {twin['journeys']['ga']['p50_s']}/"
-        f"{twin['journeys']['ga']['p99_s']} s twin; decisions per replica acting "
-        f"{[r['decisions'] for r in acting['replicas']]}, suppressed "
-        f"{[r['suppressed'] for r in acting['replicas']]}; twin {[r['decisions'] for r in twin['replicas']]}, "
-        f"suppressed {[r['suppressed'] for r in twin['replicas']]}; create_accelerator "
-        f"{acting['create_accelerator']}/{twin['create_accelerator']}; AIMD ceiling sums at most "
-        f"{acting['aimd_ceiling_sums_max']} /s, call rates at most {acting['call_rates_max']} /s "
-        f"(budget {SHARD_BUDGET_QPS}); cores busy in this process and its children at most "
-        f"{runs['busy_cores_max']} (mean {runs['busy_cores_mean']}) of {os.cpu_count()}, the "
-        f"replicas {acting['replica_cores_busy']} / {twin['replica_cores_busy']}, this process "
-        f"(both apiservers) {acting['this_process_cores_busy']}, flock share "
-        f"{acting['flock_busy_share']}; phase {runs['wall_s']} s (host-bound, the card is idle "
-        f"in this phase) on {card}",
+        f"{AUTOSCALE_WAVE}; acting: scale-out by replica {out['replica']} for {out['reason']} "
+        f"{out['reaction_s']} s after the wave (bound {AUTOSCALE_REACTION_BOUND:g} s), ring epochs "
+        f"{sorted(acting['epochs_s'])}, stable everywhere at {sorted(acting['stable_s'])}, "
+        f"scale-in {acting['scale_in']}; observe-only twin: ring epochs {sorted(twin['epochs_s'])}, "
+        f"target-shards gauge at most {twin['target_shards_max']}; create_accelerator "
+        f"{acting['create_accelerator']}/{twin['create_accelerator']}, journeys in flight 0 on "
+        f"every replica {acting['settle_s']} / {twin['settle_s']} s after calm (bound "
+        f"{AUTOSCALE_SETTLE_S:g} s), AIMD ceiling sums over owners at most "
+        f"{acting['aimd_ceiling_sums_max']} / {twin['aimd_ceiling_sums_max']} /s, call rates at "
+        f"most {acting['call_rates_max']} / {twin['call_rates_max']} /s (budget "
+        f"{SHARD_BUDGET_QPS}), no duplicate, exits {acting['exits']} / {twin['exits']} "
+        f"(host-bound, the card is idle in this phase) on {card}",
         flush=True,
     )
     print("autoscale " + json.dumps(runs), flush=True)
@@ -4246,38 +3529,25 @@ def phase_teardown(n: int, card: str) -> dict:
     mid-teardown, the survivor's sweeper mopping up; ``teardown_fleet``
     holds the run to its hard bounds."""
     pkg = load(PORT)
-    start = time.monotonic()
-    LAST_METRICS.clear()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-teardown-") as workdir:
         run = teardown_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
     del run["aws_state"]
-    run["wall_s"] = time.monotonic() - start
-    run["stages"] = stage_attribution(pkg, list(LAST_METRICS.values()))
-    print(stage_line("teardown", run["stages"], card), flush=True)
-    kill, gc = run["kill"], TEARDOWN_GC
+    kill, gc, watch = run["kill"], TEARDOWN_GC, run["watch"]
     print(
         f"teardown: 2 x python -m {PORT} controller --shard-count 2 --shards-per-replica 2 "
         f"--gc-interval {gc['interval']:g} --gc-grace-sweeps {gc['grace_sweeps']} "
         f"--gc-max-deletes {gc['max_deletes']} ({SHARD_WORKERS} workers, {SHARD_LATENCY} s fake "
         f"AWS latency, accelerators settling through {TEARDOWN_SETTLE} reads), {n} Services "
-        f"({run['hostnames']}) converged {run['converge_s']} s after the first create; "
-        f"{run['deleted']} deleted in a {run['burst_s']} s burst; SIGKILL to replica "
-        f"{kill['victim']} (shards {kill['owned']}) {kill['at_s']} s after the burst with "
-        f"{kill['watch']['gone']} accelerators gone and {kill['watch']['disabled']} disabled "
-        f"(reactive teardown {run['reactive_teardowns_per_s']} chains/s), orphans left per shard "
-        f"{kill['left_by_shard']}; the survivor held both shards {kill['takeover_s']} s after "
-        f"the kill with {kill['orphans_at_steal']} orphans left; the last orphan went "
-        f"{run['mop_up_s']} s after the kill (bound {run['mop_up_bound_s']} s = takeover + "
-        f"(grace - 1 + ceil(K / budget) + 1) x interval + 2 x settle + {TEARDOWN_SLACK_S:g} s) "
-        f"in {run['sweeps_to_mop_up']} sweeps; gc counters over the sweeps read "
-        f"{run['gc_counters']} (sweeps read {run['gc_sweeps_seen']}), the survivor's gc block "
-        f"{run['gc_survivor']}; disables {run['disables']}; {run['calls_per_chain']} AWS calls "
-        f"per torn-down chain {run['aws_calls']}; call rates at most {run['call_rates_max']} /s, "
-        f"AIMD ceiling sums at most {run['aimd_ceiling_sums_max']} /s (budget "
-        f"{SHARD_BUDGET_QPS}); journeys 0 on the survivor {run['journeys_settle_s']} s after "
-        f"calm; watch {run['watch']['polls']} reads, at most {run['watch']['max_gap_s']} s "
-        f"apart; {run['host_cores_busy']} of {os.cpu_count()} host cores busy; phase "
-        f"{run['wall_s']} s (host-bound, the card is idle in this phase) on {card}",
+        f"({run['hostnames']} hostnames), {run['deleted']} deleted; SIGKILL to replica "
+        f"{kill['victim']} (shards {kill['owned']}) with {kill['victim_orphans']} orphans of its "
+        f"shards left; the survivor's sweeper deleted {run['gc_survivor']['deleted_total']}, the "
+        f"last orphan gone {run['mop_up_s']} s after the kill (bound {run['mop_up_bound_s']} s), "
+        f"no sweep over {gc['max_deletes']} deletes, no second disable {run['disables']}; the "
+        f"kept half untouched in {watch['polls']} watch reads, at most {watch['max_gap_s']} s "
+        f"apart; journeys 0 on the survivor {run['journeys_settle_s']} s after calm (bound "
+        f"{AUTOSCALE_SETTLE_S:g} s); AIMD ceiling sums at most {run['aimd_ceiling_sums_max']} /s, "
+        f"call rates at most {run['call_rates_max']} /s (budget {SHARD_BUDGET_QPS}); survivor exit "
+        f"{run['exit']} (host-bound, the card is idle in this phase) on {card}",
         flush=True,
     )
     print("teardown " + json.dumps(run), flush=True)
@@ -4289,23 +3559,11 @@ def phase_drift(n: int, card: str) -> dict:
     shard 0 killed mid-repair and the bindings' finalizers run;
     ``drift_fleet`` holds the run to its hard bounds."""
     pkg = load(PORT)
-    start = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-drift-") as workdir:
         run = drift_fleet(pkg, PORT, n, SHARD_LATENCY, pathlib.Path(workdir))
     del run["aws_state"]
-    run["wall_s"] = time.monotonic() - start
-    kill = run["kill"]
-    ticks = "; ".join(
-        f"replica {r}: "
-        + ", ".join(
-            f"{t['tick_s']} s ({t['journeys']} drift journeys, reads "
-            + ", ".join(f"{op} {count}" for op, count in t["reads"].items()) + ")"
-            for t in tr["timed"]
-        )
-        + f" against the ceilings {tr['ceilings']}"
-        + (f", {tr['shared']} windows shared with other reconciles" if tr["shared"] else "")
-        for r, tr in run["ticks"].items()
-    )
+    kill, watch = run["kill"], run["watch"]
+    reads = {r: t["timed"][-1]["reads"] for r, t in run["ticks"].items()}
     repairs = ", ".join(
         f"{r['kind']}@{r['shard']} {r['repair_s']} s (bound {r['bound_s']} s, by the {r['by']})"
         for r in run["repairs"]
@@ -4314,25 +3572,20 @@ def phase_drift(n: int, card: str) -> dict:
         f"drift: 2 x python -m {PORT} controller --shard-count 2 --shards-per-replica 2 "
         f"--drift-resync-period {run['period_s']:g} ({SHARD_WORKERS} workers, {SHARD_LATENCY} s fake "
         f"AWS latency, AGAC_DISCOVERY_CACHE_TTL={run['period_s']:g}), {n} Services + "
-        f"{run['ingresses']} Ingresses + {run['bindings']} bindings ({run['hostnames']} TXT+A pairs) "
-        f"converged {run['converge_s']} s after the first create; one tick: {ticks}; P = "
-        f"{run['period_s']:g} s = {run['period_over_tick']} x the longest tick ({run['tick_s']} s); "
-        f"{len(run['repairs'])} tampers in {run['tamper_s']} s, repaired: {repairs}; SIGKILL to "
-        f"replica {kill['victim']} (shards {kill['owned']}) {kill['at_s']} s after the tamper with "
-        f"{len(kill['open'])} of its shard's tampers open {kill['open']}; the survivor held both "
-        f"shards {kill['takeover_s']} s after the kill and closed its {kill['handoff_journeys']} "
-        f"handoff journeys {kill['adoption_tick_s']} s after that; every tamper repaired "
-        f"{run['repaired_s']} s "
-        f"after the tamper; bindings finalized {run['unbind_s']} s after their delete; journeys 0 "
-        f"on the survivor {run['journeys_settle_s']} s after calm; call rates at most "
-        f"{run['call_rates_max']} /s, AIMD ceiling sums at most {run['aimd_ceiling_sums_max']} /s "
-        f"(budget {SHARD_BUDGET_QPS}); watch {run['watch']['polls']} reads, at most "
-        f"{run['watch']['max_gap_s']} s apart, no duplicate; /debug/profile on the survivor: "
-        f"{run['profile']['samples']} samples in {run['profile']['seconds']:g} s; phase "
-        f"{run['wall_s']} s (host-bound, the card is idle in this phase) on {card}",
+        f"{run['ingresses']} Ingresses + {run['bindings']} bindings ({run['hostnames']} TXT+A "
+        f"pairs); a verifying tick's reads per replica {reads} within their ceilings; tampers "
+        f"repaired: {repairs}; SIGKILL to replica {kill['victim']} (shards {kill['owned']}) with "
+        f"{kill['open']} of its shard open, the survivor held both shards; bindings finalized, "
+        f"the out-of-band chains as built, the fleet's chains and pairs at the end, no reconcile "
+        f"of a key a replica's shards did not own; journeys 0 on the survivor "
+        f"{run['journeys_settle_s']} s after the finalizers (bound "
+        f"{run['period_s'] + AUTOSCALE_SETTLE_S:g} s); AIMD ceiling sums at most "
+        f"{run['aimd_ceiling_sums_max']} /s, call rates at most {run['call_rates_max']} /s (budget "
+        f"{SHARD_BUDGET_QPS}); watch {watch['polls']} reads, at most {watch['max_gap_s']} s apart, "
+        f"no duplicate; survivor exit {run['exit']} (host-bound, the card is idle in this phase) "
+        f"on {card}",
         flush=True,
     )
-    print(stage_line("drift", run["stages"], card), flush=True)
     print("drift " + json.dumps(run), flush=True)
     return run
 
@@ -4582,7 +3835,6 @@ def analysis_crosscheck(pkg, n: int, card: str) -> dict:
         "bindings": fleet.n_egb,
         "faults_injected": faults,
         "elapsed_s": elapsed,
-        "objects_per_s": fleet.n_objects / elapsed,
         "observed_edges": len(edges),
         "unmapped_edges": len(unmapped),
         "stage_accesses": len(accesses),
@@ -4592,8 +3844,7 @@ def analysis_crosscheck(pkg, n: int, card: str) -> dict:
     }
     print(
         f"analysis crosscheck: {n} Services + {fleet.n_ing} Ingresses + {fleet.n_egb} "
-        f"bindings converged through {faults} injected faults in {elapsed} s = "
-        f"{result['objects_per_s']} objects/s under the racecheck watchdog; "
+        f"bindings converged through {faults} injected faults under the racecheck watchdog; "
         f"{len(edges)} observed lock edges ({len(unmapped)} unmapped), {len(accesses)} "
         f"stage accesses ({len(unmapped_accesses)} unmapped), 0 violations "
         f"(host, the card is idle) on {card}",

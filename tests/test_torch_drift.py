@@ -100,9 +100,12 @@ def smoke():
 
 @pytest.fixture(scope="module")
 def fleets(smoke, tmp_path_factory):
+    # made before the threads: two first calls at once race on the base directory
+    workdirs = {package: tmp_path_factory.mktemp(package) for package in PACKAGES}
+
     def run(package: str) -> dict:
         return smoke.drift_fleet(
-            smoke.load(package), package, N_SERVICES, LATENCY, tmp_path_factory.mktemp(package),
+            smoke.load(package), package, N_SERVICES, LATENCY, workdirs[package],
             period=PERIOD, hostname_every=HOSTNAME_EVERY, tampers=("listener", "endpoint"),
             victim_shard=1, n_bindings=N_BINDINGS,
         )

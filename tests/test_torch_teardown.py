@@ -91,10 +91,13 @@ def smoke():
 
 @pytest.fixture(scope="module")
 def fleets(smoke, tmp_path_factory):
+    # made before the threads: two first calls at once race on the base directory
+    workdirs = {package: tmp_path_factory.mktemp(package) for package in PACKAGES}
+
     def run(package: str) -> dict:
         return smoke.teardown_fleet(
             smoke.load(package), package, N_SERVICES, LATENCY,
-            tmp_path_factory.mktemp(package), hostname_every=HOSTNAME_EVERY, victim_shard=1,
+            workdirs[package], hostname_every=HOSTNAME_EVERY, victim_shard=1,
         )
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
