@@ -576,11 +576,14 @@ class _TopologyEntry:
     against AWS; ``full_expires`` bounds how long the write-through
     listener identity is trusted before a full relist (the detection
     bound for out-of-band listener *mutation*/addition — deletion is
-    caught every verify, see ``AcceleratorTopologyCache``)."""
+    caught every verify, see ``AcceleratorTopologyCache``).
+    ``creating_until``, when set, is the end of a pending-create record:
+    this process created the accelerator and is building its chain, so
+    the entry's members are exact without a read (``begin_create``)."""
 
     __slots__ = (
         "listener", "endpoint_group", "verified_expires", "full_expires",
-        "load_event", "journal",
+        "load_event", "journal", "creating_until",
     )
 
     def __init__(self):
@@ -590,6 +593,7 @@ class _TopologyEntry:
         self.full_expires = 0.0
         self.load_event: Optional[threading.Event] = None
         self.journal: Optional[list] = None
+        self.creating_until = 0.0
 
 
 class AcceleratorTopologyCache:
@@ -626,6 +630,19 @@ class AcceleratorTopologyCache:
     - any not-found on the verify read falls back to a full load in
       the same flight; mismatch paths in the driver invalidate.
 
+    A chain this process is creating is the one exception to "verify
+    by reading": after its own ``CreateAccelerator`` the driver opens a
+    pending-create record (``begin_create``).  AWS creates an
+    accelerator with no listener, and until the record ends the entry
+    holds exactly what the driver has written since, so ``chain``
+    answers from it with no read: ListenerNotFound before the
+    listener's create, (listener, None) after it.  The record ends at
+    the endpoint group's write, at ``end_create`` (a create call that
+    raised), at ``invalidate``/``remove``/``invalidate_all``, or
+    ``verify_ttl`` after the chain's last write (a create that stalls
+    reads AWS again); what it leaves is the write-through seed, not
+    verified, as a chain created without the record would leave it.
+
     Loads are single-flight PER KEY with the same write-journal fold
     as ``DiscoveryCache``: a write-through landing mid-load repairs
     the loaded chain, an invalidate/remove poisons the store.
@@ -636,10 +653,15 @@ class AcceleratorTopologyCache:
         verify_ttl: float = 15.0,
         full_ttl: float = 900.0,
         clock: Optional[Callable[[], float]] = None,
+        pending_creates: bool = True,
     ):
         self._verify_ttl = verify_ttl
         self._full_ttl = full_ttl
         self._clock = clock or clockseam.monotonic
+        # False only where a replay re-derives a run recorded by a
+        # controller that read between the create stages
+        # (``sim.replay``): ``begin_create`` then opens no record
+        self._pending_creates = pending_creates
         self._lock = threading.Lock()
         self._entries: dict[str, _TopologyEntry] = {}
         self.hits = 0       # served from the verified window
@@ -647,6 +669,10 @@ class AcceleratorTopologyCache:
         self.misses = 0     # full relists
         self.waits = 0      # callers parked behind another's load
         self._timer = _FlightTimer("topology", self._clock)
+        self._skipped = {
+            stage: instruments.chain_create_reads_skipped_total().labels(stage=stage)
+            for stage in ("listener", "endpoint_group")
+        }
 
     def stats(self) -> dict:
         with self._lock:
@@ -672,10 +698,16 @@ class AcceleratorTopologyCache:
         is the 1-read tail check returning the endpoint group (or
         None) and raising ListenerNotFound when the cached listener is
         gone, which falls back to a full load in the same flight."""
+        creating = False
         while True:
             with self._lock:
                 entry = self._entries.get(arn)
                 now = self._clock()
+                if entry is not None and entry.creating_until:
+                    if now < entry.creating_until:
+                        creating, listener = True, entry.listener
+                        break
+                    entry = self._end_create_locked(arn, entry)
                 if entry is not None and entry.load_event is None:
                     if entry.listener is not None and now < entry.verified_expires:
                         self.hits += 1
@@ -694,6 +726,15 @@ class AcceleratorTopologyCache:
                     break
             event.wait()
             self._timer.waited(parked_at)
+
+        if creating:
+            # a pending-create record: the chain is what this process
+            # has written since its CreateAccelerator
+            if listener is None:
+                self._skipped["listener"].inc()
+                raise ListenerNotFoundException(arn)
+            self._skipped["endpoint_group"].inc()
+            return listener, None
 
         full = not cheap
         try:
@@ -753,6 +794,39 @@ class AcceleratorTopologyCache:
         return listener, endpoint_group
 
     # -- write-through from the driver's mutate chains ------------------
+    def begin_create(self, arn: str) -> None:
+        """This process has just created accelerator ``arn``, which AWS
+        made with no listener: open its pending-create record, and
+        with it the full-trust window a listener's write-through seed
+        opens."""
+        if not self._pending_creates:
+            return
+        with self._lock:
+            entry = self._entries[arn] = _TopologyEntry()
+            now = self._clock()
+            entry.creating_until = now + self._verify_ttl
+            entry.full_expires = now + self._full_ttl
+
+    def end_create(self, arn: str) -> None:
+        """A create call of ``arn``'s chain raised: end its
+        pending-create record, so the next pass reads AWS."""
+        with self._lock:
+            entry = self._entries.get(arn)
+            if entry is not None and entry.creating_until:
+                self._end_create_locked(arn, entry)
+
+    def _end_create_locked(
+        self, arn: str, entry: _TopologyEntry
+    ) -> Optional[_TopologyEntry]:
+        """End ``entry``'s record (caller holds the lock); an entry with
+        no listener yet is dropped, as a failed relist drops it.
+        Returns what stays of the entry."""
+        entry.creating_until = 0.0
+        if entry.listener is None:
+            del self._entries[arn]
+            return None
+        return entry
+
     def upsert_listener(self, arn: str, listener: Listener) -> None:
         """Fold a local listener create/update in.  A fresh entry is
         seeded with a full-trust window (the writer just created the
@@ -767,6 +841,8 @@ class AcceleratorTopologyCache:
             if entry.journal is not None:
                 entry.journal.append(("listener", listener))
             entry.listener = listener
+            if entry.creating_until:
+                entry.creating_until = self._clock() + self._verify_ttl
 
     def upsert_endpoint_group(self, arn: str, endpoint_group: EndpointGroup) -> None:
         with self._lock:
@@ -776,6 +852,7 @@ class AcceleratorTopologyCache:
             if entry.journal is not None:
                 entry.journal.append(("endpoint_group", endpoint_group))
             entry.endpoint_group = endpoint_group
+            entry.creating_until = 0.0
 
     def invalidate(self, arn: str) -> None:
         """External/unknown change to this chain: drop it, and poison

@@ -827,6 +827,10 @@ class AWSDriver:
             ga_name, IP_ADDRESS_TYPE_IPV4, True, tags
         )
         self._discovery_upsert(accelerator, tags)
+        # the requeued passes verify the chain this pass began: they
+        # answer from what this process writes, with no read
+        if self._topology_cache is not None:
+            self._topology_cache.begin_create(accelerator.accelerator_arn)
         klog.infof("Global Accelerator is created: %s", accelerator.accelerator_arn)
         return accelerator.accelerator_arn
 
@@ -927,9 +931,13 @@ class AWSDriver:
             listener, endpoint_group = self._verified_chain(arn)
         except ListenerNotFoundException:
             ports, protocol = listener_spec(obj)
-            listener = self.ga.create_listener(
-                arn, [PortRange(p, p) for p in ports], protocol, CLIENT_AFFINITY_NONE
-            )
+            try:
+                listener = self.ga.create_listener(
+                    arn, [PortRange(p, p) for p in ports], protocol, CLIENT_AFFINITY_NONE
+                )
+            except Exception:
+                self._topology_end_create(arn)
+                raise
             self._topology_upsert_listener(arn, listener)
             klog.infof("Listener is created: %s", listener.listener_arn)
             endpoint_group = None
@@ -949,16 +957,20 @@ class AWSDriver:
             self._topology_upsert_listener(arn, listener)
 
         if endpoint_group is None:
-            endpoint_group = self.ga.create_endpoint_group(
-                listener.listener_arn,
-                region,
-                [
-                    EndpointConfiguration(
-                        endpoint_id=lb.load_balancer_arn,
-                        client_ip_preservation_enabled=client_ip_preservation(obj),
-                    )
-                ],
-            )
+            try:
+                endpoint_group = self.ga.create_endpoint_group(
+                    listener.listener_arn,
+                    region,
+                    [
+                        EndpointConfiguration(
+                            endpoint_id=lb.load_balancer_arn,
+                            client_ip_preservation_enabled=client_ip_preservation(obj),
+                        )
+                    ],
+                )
+            except Exception:
+                self._topology_end_create(arn)
+                raise
             self._topology_upsert_endpoint_group(arn, endpoint_group)
             klog.infof("EndpointGroup is created: %s", endpoint_group.endpoint_group_arn)
         elif not endpoint_contains_lb(endpoint_group, lb):
@@ -1013,6 +1025,10 @@ class AWSDriver:
     def _topology_upsert_endpoint_group(self, accelerator_arn: str, endpoint_group) -> None:
         if self._topology_cache is not None:
             self._topology_cache.upsert_endpoint_group(accelerator_arn, endpoint_group)
+
+    def _topology_end_create(self, accelerator_arn: str) -> None:
+        if self._topology_cache is not None:
+            self._topology_cache.end_create(accelerator_arn)
 
     def _topology_remove(self, accelerator_arn: str) -> None:
         if self._topology_cache is not None:

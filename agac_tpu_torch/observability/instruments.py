@@ -996,6 +996,20 @@ def binding_weight_sync_total(registry: Optional[MetricsRegistry] = None) -> met
     )
 
 
+def chain_create_reads_skipped_total(
+    registry: Optional[MetricsRegistry] = None,
+) -> metrics_mod.Metric:
+    reg = _reg(registry)
+    return reg.counter(
+        "agac_chain_create_reads_skipped_total",
+        "Chain reads a staged create did without: a verify of the chain "
+        "this process is creating, answered from what it wrote since its "
+        "CreateAccelerator, by the stage it resumed: listener "
+        "(ListListeners) or endpoint_group (ListEndpointGroups)",
+        labels=("stage",),
+    )
+
+
 # (family name, the accessor that registers it)
 PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Metric]], ...] = (
     ("agac_read_plane_load_seconds", read_plane_load_seconds),
@@ -1007,4 +1021,5 @@ PORT_ONLY: tuple[tuple[str, Callable[[Optional[MetricsRegistry]], metrics_mod.Me
     ("agac_drift_tick_keys_total", drift_tick_keys_total),
     ("agac_drift_tick_drain_seconds", drift_tick_drain_seconds),
     ("agac_binding_weight_sync_total", binding_weight_sync_total),
+    ("agac_chain_create_reads_skipped_total", chain_create_reads_skipped_total),
 )

@@ -62,6 +62,11 @@ DEFAULT_MAX_BYTES = 16 * 1024 * 1024
 # without reproducing the header (whose snapshot a replay consumes,
 # not re-emits)
 GENESIS = "0" * 64
+# the header key that says the recording controller answered a staged
+# create's own chain from pending-create records, with no read between
+# its creates; a replay of a capture without it (one recorded by a
+# controller that read there) reads there too
+PENDING_CREATES = "pendingCreates"
 
 # fields the canonical form never hashes: server-filled identity and
 # wall-clock stamps the fake apiserver mints from the REAL clock
@@ -313,6 +318,7 @@ class IncidentCapture:
             "monotonic": round(clockseam.monotonic(), 6),
             "wall": round(clockseam.time(), 6),
             "snapshot": snapshot,
+            PENDING_CREATES: True,
         }
 
     def _write_header(self, snapshot: dict) -> None:

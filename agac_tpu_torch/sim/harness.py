@@ -315,7 +315,9 @@ class _World:
         )
         self.zones = HostedZoneCache(ttl=config.zone_ttl)
         self.topology = AcceleratorTopologyCache(
-            verify_ttl=config.read_plane_ttl, full_ttl=config.topology_full_ttl
+            verify_ttl=config.read_plane_ttl,
+            full_ttl=config.topology_full_ttl,
+            pending_creates=harness.pending_creates,
         )
         self.records = RecordSetCache(
             ttl=config.read_plane_ttl,
@@ -751,12 +753,17 @@ class SimHarness:
         aws: Optional[FakeAWSBackend] = None,
         config: Optional[SimHarnessConfig] = None,
         capture: Optional[IncidentCapture] = None,
+        pending_creates: bool = True,
     ):
         self.config = config or SimHarnessConfig()
         self.scheduler = runtime.SimScheduler()
         self._given_cluster = cluster
         self._given_aws = aws
         self._given_capture = capture
+        # the topology caches' pending-create records: off only to
+        # replay a capture whose controller read between the create
+        # stages (``sim.replay``)
+        self.pending_creates = pending_creates
         # the incident tap, armed in __enter__; the replay
         # harness sets informer_feed to substitute recorded watch
         # batches for live cluster deltas

@@ -340,6 +340,7 @@ class ReplayHarness:
         self.harness = SimHarness(
             cluster=cluster, aws=self.aws, config=self.config,
             capture=self.shadow,
+            pending_creates=capture.header.get(capture_mod.PENDING_CREATES, False),
         )
         self._substitute_informers = substitute_informers
         self._entered = False

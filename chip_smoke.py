@@ -138,18 +138,19 @@ Phases, in order; any failure exits non-zero before the last line:
    virtual hours on two replicas, runs to quiescence and requires
    clean oracles, a complete accelerator chain per Service, the
    TXT+A pair per hostname-annotated Service and, where
-   ``ROLLOUT_PINS`` holds one for N, the pinned trace hash;
+   ``PORT_ROLLOUT_PINS`` holds one for N, the pinned trace hash;
    ``shard-soak`` brings the same number of Services up on two shards,
    kills a replica at virtual hour 3 and requires clean oracles and
    SLOs, every journey closed, one accelerator per Service, one owner
-   of both shards and, where ``SHARD_SOAK_PINS`` holds one, the pinned
-   hash.  The rollout and soak pins are what the reference package
-   computes for the same runs.  Every fuzz scenario tears chains
-   down, where the port makes two accelerator reads fewer than the
-   reference, so the port's fuzz pins are its own (``FUZZ_PINS`` holds
-   the reference's); ``tests/test_torch_sim.py`` holds each of those
-   runs to the reference's outcome on the CPU.  Host code: the card is
-   idle in this phase.
+   of both shards and, where ``PORT_SHARD_SOAK_PINS`` holds one, the
+   pinned hash.  The port's teardown makes two accelerator reads fewer
+   than the reference's, and its staged create reads nothing between
+   its three creates, so the port's fuzz, rollout and soak pins are
+   its own (``FUZZ_PINS``, ``ROLLOUT_PINS`` and ``SHARD_SOAK_PINS``
+   hold the reference's); ``tests/test_torch_sim.py`` and
+   ``tests/test_torch_sharding_sim.py`` hold each of those runs to the
+   reference's outcome on the CPU.  Host code: the card is idle in
+   this phase.
 10. ``analysis``: the port's static analyses over its own tree, then
    their runtime cross-check at fleet scale.  The port's linter must
    find nothing and its whole-program analyses (lock order, census,
@@ -412,9 +413,10 @@ FUZZ_PINS = {
     ),
 }
 # the same scenarios -> the port's event-trace hash: its teardown
-# makes two accelerator reads fewer than the reference's, and every
-# scenario deletes objects (tests/test_torch_sim.py holds each run to
-# the reference's outcome)
+# makes two accelerator reads fewer than the reference's and its staged
+# create two chain reads fewer, and every scenario creates and deletes
+# objects (tests/test_torch_sim.py holds each run to the reference's
+# outcome)
 PORT_FUZZ_PINS = {
     ("standard", 1, "quick"): (
         "cc1a56bbda481217c9bf7a080defe75d99d0be9b77c0c0df03b6937303354da1"
@@ -435,7 +437,7 @@ PORT_FUZZ_PINS = {
         "27e5f94a0668f6d97e7baef6de5ef6991d3d98766056c313e0048909a39aee4d"
     ),
     ("autoscale", 1, "mini"): (
-        "f1d1d0475f9c1c5a8f646a3f7bee5d927ff056e304a0ef7fd370008eeb0213f1"
+        "a8f3c5053826763de95bb4bfa67e32ec760ef943e757610fe2e9460aad36be4c"
     ),
     ("autoscale-brownout", 1, "mini"): (
         "4ab2cdb59a17ecc007e4c3c31298906f1f4bd4dbe85d369db3ded51beb03460e"
@@ -445,6 +447,11 @@ PORT_FUZZ_PINS = {
 ROLLOUT_PINS = {
     10_000: "29dc7b0962778f0abe088d1b37bbe44a1a82873a15346f6924723883a9f98abd",
 }
+# the same rollout -> the port's event-trace hash: every Service's
+# staged create makes two chain reads fewer than the reference's
+PORT_ROLLOUT_PINS = {
+    10_000: "be3f1d5cd9902e9a69544f7dcd855ec5b4771280b9fe0c24a69bc3d77fbc5b32",
+}
 # the two-shard soak (tests/test_sharding_sim.py, TestTwoShardSoak): a
 # replica is killed at virtual hour 3, the world runs 6 virtual hours,
 # then to quiescence within 6 more
@@ -453,6 +460,10 @@ SHARD_SOAK_SECONDS = 6 * 3600.0
 # Services in the soak -> the reference's event-trace hash
 SHARD_SOAK_PINS = {
     10_000: "6b163afcab7a96bd0b0256e7bb3f4d477b31938984c95a5aa1d5311e1df67990",
+}
+# the same soak -> the port's event-trace hash (as PORT_ROLLOUT_PINS)
+PORT_SHARD_SOAK_PINS = {
+    10_000: "f52003fbea9e5938aa1b91454a469d45feccf56c30e7da060a1006174ef8db55",
 }
 
 # the analysis phase: the chaos tier's fault plan (tests/test_chaos_e2e.py),
@@ -3679,7 +3690,7 @@ def sim_rollout(pkg, n: int, card: str) -> dict:
     }
     if not result["quiescent"] or faults:
         raise PhaseError(f"rollout of {n}: quiescent={result['quiescent']} {faults}")
-    pinned = ROLLOUT_PINS.get(n)
+    pinned = PORT_ROLLOUT_PINS.get(n)
     if pinned is not None and result["trace_hash"] != pinned:
         raise PhaseError(f"rollout of {n}: trace {result['trace_hash']} != pinned {pinned}")
     return {
@@ -3723,7 +3734,7 @@ def sim_shard_soak(pkg, n: int, card: str) -> dict:
             f"shard soak of {n}: ownership {result['ownership']}, "
             f"{result['generations']} generations"
         )
-    pinned = SHARD_SOAK_PINS.get(n)
+    pinned = PORT_SHARD_SOAK_PINS.get(n)
     if pinned is not None and result["trace_hash"] != pinned:
         raise PhaseError(f"shard soak of {n}: trace {result['trace_hash']} != pinned {pinned}")
     return {

@@ -117,6 +117,13 @@ PORT_ONLY_FUNCTIONS = frozenset({
     # the binding's weight sync, counted where it writes and where it
     # skips a weight the pass already saw in AWS
     "agac_tpu.observability.instruments::binding_weight_sync_total",
+    # a staged create answers its own chain from a pending-create record
+    # of the topology cache, counted per read it does without
+    "agac_tpu.observability.instruments::chain_create_reads_skipped_total",
+    "agac_tpu.cloudprovider.aws.cache::AcceleratorTopologyCache.begin_create",
+    "agac_tpu.cloudprovider.aws.cache::AcceleratorTopologyCache.end_create",
+    "agac_tpu.cloudprovider.aws.cache::AcceleratorTopologyCache._end_create_locked",
+    "agac_tpu.cloudprovider.aws.driver::AWSDriver._topology_end_create",
 })
 PACKAGES = ("agac_tpu", "agac_tpu_torch")
 INSTALLED = frozenset({"yaml", "pytest"})

@@ -1,8 +1,11 @@
 """The sharded sim, held against the reference: ``chip_smoke.shard_soak``
 (``TestTwoShardSoak``'s configuration: two live replicas over two
-shards, a replica killed at virtual hour 3) gives the same trace hash,
-statistics, ownership and generations through ``agac_tpu`` and
-``agac_tpu_torch``, with clean oracles and SLOs.
+shards, a replica killed at virtual hour 3) ends through ``agac_tpu``
+and ``agac_tpu_torch`` with clean oracles and SLOs, the same
+ownership, generations and final AWS world, the same mutations and
+statistics but for the counts of AWS calls and events: the port's
+staged create reads nothing between its creates, so its trace is its
+own (``chip_smoke.PORT_SHARD_SOAK_PINS``).
 
 One case holds the port to a fix the reference lacks: a survivor more
 than the rebalance hysteresis above a dead replica's last published
@@ -17,6 +20,8 @@ import importlib
 
 import pytest
 
+from .test_torch_sim import played_fleet, same_outcome
+
 REF, PORT = "agac_tpu", "agac_tpu_torch"
 SOAK_N = 1_000
 
@@ -27,8 +32,8 @@ def smoke():
 
 
 def test_shard_soak_matches_the_reference(smoke):
-    port = smoke.shard_soak(smoke.load(PORT), SOAK_N)
-    ref = smoke.shard_soak(smoke.load(REF), SOAK_N)
+    port, port_run = played_fleet(smoke, PORT, smoke.shard_soak, SOAK_N)
+    ref, ref_run = played_fleet(smoke, REF, smoke.shard_soak, SOAK_N)
     for result in (port, ref):
         assert result["quiescent"]
         assert result["violations"] == result["slo_violations"] == []
@@ -36,8 +41,9 @@ def test_shard_soak_matches_the_reference(smoke):
         assert result["accelerators"] == SOAK_N
         assert list(result["ownership"].values()) == [[0, 1]]
         assert result["generations"] >= 2
-        del result["wall_s"]
-    assert port == ref
+    same_outcome(port_run, ref_run)
+    for key in ("converged_total", "ownership", "generations"):
+        assert port[key] == ref[key], key
 
 
 def _skewed_fleet(package: str, light: int, heavy: int) -> tuple[list[int], list[int], int]:
@@ -89,6 +95,18 @@ def test_overloaded_survivor_takes_a_dead_replicas_lease(smoke):
         assert list(harness.shard_ownership().values()) == [frozenset({0, 1})]
         assert len(harness.aws.all_accelerator_arns()) == len(light) + len(heavy) + 1
         assert mod("sim.oracles").standard_oracles(harness) == []
+
+
+@pytest.mark.slow
+def test_pinned_port_shard_soak_hash_is_the_port(smoke):
+    """The port's 10,000-Service pin, which ``chip_smoke.py``'s sim
+    phase holds the port to on the card (about 80 s of host time)."""
+    assert smoke.PORT_SHARD_SOAK_PINS.keys() == smoke.SHARD_SOAK_PINS.keys()
+    for n, pinned in smoke.PORT_SHARD_SOAK_PINS.items():
+        result = smoke.shard_soak(smoke.load(PORT), n)
+        assert result["quiescent"] and result["violations"] == []
+        assert result["accelerators"] == n
+        assert result["trace_hash"] == pinned
 
 
 @pytest.mark.slow

@@ -592,3 +592,31 @@ def test_the_weight_sync_counter_is_port_only_and_counts_each_outcome():
         assert world.measure("a")[1:] == (1, 0)  # edited: written
     finally:
         world.close()
+
+
+# ---------------------------------------------------------------------------
+# a staged create's own chain, answered from its pending-create record
+# ---------------------------------------------------------------------------
+
+
+def test_the_create_read_counter_is_port_only_and_counts_each_skipped_read():
+    from .test_torch_create_reads import PORT, World, _skipped
+
+    family = "agac_chain_create_reads_skipped_total"
+    instruments = _port("observability.instruments")
+    metrics = _port("observability.metrics")
+    assert family in dict(instruments.PORT_ONLY)
+    assert instruments.register_all(metrics.MetricsRegistry()).get(family) is None
+    docs = (pathlib.Path(__file__).resolve().parent.parent / "docs" / "operations.md").read_text()
+    assert family not in docs
+    world = World(PORT)
+    seen = lambda: (_skipped("listener"), _skipped("endpoint_group"))
+    start = seen()
+    world.ensure("web")  # the accelerator: nothing to skip yet
+    assert seen() == start
+    world.ensure("web")  # the listener's pass: no ListListeners
+    assert seen() == (start[0] + 1, start[1])
+    world.ensure("web")  # the endpoint group's pass: no ListEndpointGroups
+    assert seen() == (start[0] + 1, start[1] + 1)
+    world.ensure("web")  # the finished chain is verified by a read
+    assert seen() == (start[0] + 1, start[1] + 1)
